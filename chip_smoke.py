@@ -6,10 +6,11 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``yalla_tpu_torch/csrc`` and drives
-the port's main path once: the branching model's Heun step at 500k cells
-on the dense cube lattice, rebuilt before every pass, at the settings
-``bench.py`` certifies (``bench_state.json``, ``branching_500000``), from
-the settled state in ``.bench_cache``.  Phases, each reported on its own
+the port's two paths: the branching model's Heun step at 500k cells on the
+dense cube lattice, rebuilt before every pass, at the settings ``bench.py``
+certifies (``bench_state.json``, ``branching_500000``), and the 5k sorting
+model's Heun step on the all-pairs engine (``sorting_5000``), each from
+its settled state in ``.bench_cache``.  Phases, each reported on its own
 line:
 
 1. the card's name and power limit, and the kernel build time;
@@ -26,7 +27,28 @@ line:
    tolerance, atol 1e-6 + rtol 1e-2 (``tests/helpers.py`` ``isclose``);
 5. the main path: ``Solution`` + ``LatticeEngine`` for ``N_STEPS`` steps,
    with every ``__err_*`` flag 0, a finite state, and both kernels
-   launched 2 * N_STEPS times; its rate in cell-steps/s.
+   launched 2 * N_STEPS times; its rate in cell-steps/s;
+6. the central all-pairs kernel (K4) against its plain version on the
+   settled 5k sorting state (5000 cells in 5120 rows), with the central
+   adhesion: the friction sum exact, the forces within ``K4_ATOL`` (the
+   factored form ``x_i * sum_w - sum_j w x_j`` cancels two sums of size
+   ``|x| * sum|w|``), ``sum_v`` as K1's; first, the kernel's ``rsqrtf``
+   against ``torch.rsqrt`` bit for bit over every pair's squared
+   distance, which the exact friction sum rests on;
+7. the tile all-pairs kernel (K3) against its plain version on the same
+   state with the hand-written adhesion (friction sum exact), and on the
+   600-cell branching state with its polarity channels (friction sum and
+   ``epi_nbs`` exact);
+8. the 5k slice, 2 steps of ``TileEngine(mxu=True)`` (central adhesion)
+   and of ``TileEngine(pallas=True)`` (hand-written adhesion) on the GPU
+   against the same steps through the plain versions on the CPU, every
+   field within the reference's ``isclose``;
+9. the 5k slice at ``bench_state.json`` ``sorting_5000``:
+   ``Solution(n_pad=5120)`` with ``bench_engine(cfg)`` for ``N5`` steps
+   after one warm-up step, flags 0, state finite, K4 launched 2 * N5
+   times; then the same with ``TileEngine(pallas=True)`` and the
+   hand-written adhesion, K3 launched 2 * N5 times; ms/step and
+   cell-steps/s of each.
 
 It then prints the kernels' JSON record and, last, the device record.
 Any failure raises and exits non-zero.  Without a CUDA device it exits
@@ -46,6 +68,11 @@ N_STEPS = 20
 N_SMALL = 600
 SETTLED_SMALL = ROOT / ".bench_cache" / "settled_branching_600_s0_v1.npz"
 RTOL, ATOL = 1e-4, 1e-5
+SORT_KEY = "sorting_5000"
+N5_CELLS = 5000
+SETTLED_5K = ROOT / ".bench_cache" / "settled_sorting_p5120_5000_s0_v1.npz"
+N5 = 200
+K4_ATOL = 1e-4
 
 
 def cuda_ms(fn, reps):
@@ -63,7 +90,7 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare_sums(tag, kernel, plain, exact):
+def compare_sums(tag, kernel, plain, exact, atol=ATOL):
     """Max abs error over the named channels; raises past the tolerance
     (or on any difference in an ``exact`` channel)."""
     import torch
@@ -76,36 +103,226 @@ def compare_sums(tag, kernel, plain, exact):
             ok = torch.equal(k, p)
         else:
             scale = max(1.0, float(p.abs().max()))
-            ok = bool(((k - p).abs() <= RTOL * p.abs() + ATOL * scale).all())
+            ok = bool(((k - p).abs() <= RTOL * p.abs() + atol * scale).all())
         if not ok:
             raise AssertionError(f"{tag} {name}: kernel and plain disagree "
                                  f"(max abs err {err:g})")
     return worst
 
 
-def flatten(outs, prefix):
+def flatten(outs, prefix, n=None):
+    """The named channels of a pair pass, rows below ``n`` (all rows if
+    ``n`` is None)."""
     F, sum_f, sum_v, aux = outs[:4]
     d = {f"{prefix}F.{f}": a for f, a in zip(F._fields, F)}
     d[f"{prefix}sum_f"] = sum_f
     d.update({f"{prefix}sum_v{c}": a for c, a in enumerate(sum_v)})
     d.update({f"{prefix}{k}": a.reshape(-1) for k, a in aux.items()})
-    return d
+    return {k: a[:n] for k, a in d.items()}
 
 
-def solution(path, n, engine, device, cube_size):
-    """A ``Solution`` on ``device`` holding the settled state at ``path``."""
+def solution(path, n, engine, device, cube_size, Cell=None, n_pad=None):
+    """A ``Solution`` on ``device`` holding the settled state at ``path``
+    (branching cells unless ``Cell`` is given)."""
     from yalla_tpu_torch.interop import load_settled
-    from yalla_tpu_torch.models.branching import Cell
+    from yalla_tpu_torch.models import branching
     from yalla_tpu_torch.solvers import Solution
+    Cell = Cell or branching.Cell
     X, old_v = load_settled(path, Cell, device)
     sol = Solution(Cell, n, engine=engine, cube_size=cube_size,
-                   device=device)
+                   device=device, n_pad=n_pad)
     assert sol.n_pad == X.x.shape[0], (sol.n_pad, X.x.shape)
     sol.h_X = Cell(*(a.cpu().numpy() for a in X))
     sol.h_n = n
     sol.copy_to_device()
     sol.d_old_v = old_v
     return sol
+
+
+def kernel_wrappers():
+    """Each ported kernel's wrapper, whose ``launches`` counts its kernel
+    launches, by the kernel's name in the JSON record."""
+    from yalla_tpu_torch.ops.central_mxu import central_pairwise_mxu
+    from yalla_tpu_torch.ops.lattice_pallas import lattice_pairwise_pallas
+    from yalla_tpu_torch.ops.lattice_pour import pour_pallas
+    from yalla_tpu_torch.ops.tile_pallas import tile_pairwise_pallas
+    return {"pour": pour_pallas, "lattice_pair": lattice_pairwise_pallas,
+            "central_pair": central_pairwise_mxu,
+            "tile_pair": tile_pairwise_pallas}
+
+
+def run_slice(tag, sol, n_cells, n_steps, dt, force, expect,
+              precompute=None):
+    """One warm-up step, then ``n_steps`` steps with every launch count
+    set to 0 just before and read just after.  Checks that every flag is
+    0, the state is finite, and each kernel named in ``expect`` launched
+    2 * n_steps times.  Returns (launches, ms/step, cell-steps/s)."""
+    import numpy as np
+    import torch
+    sol.take_steps(1, dt, force, precompute=precompute)   # warm-up
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aux = sol.take_steps(n_steps, dt, force, precompute=precompute)
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    flags = {k: float(v.max()) for k, v in aux.items()
+             if k.startswith("__err_")}
+    if any(flags.values()):
+        raise AssertionError(f"{tag} flags set: {flags}")
+    X_end = sol.copy_to_host()
+    for f, a in zip(X_end._fields, X_end):
+        if a.shape != (sol.n_pad,) or not np.isfinite(a).all():
+            raise AssertionError(f"{tag} state field {f} is not finite")
+    for name in expect:
+        if launches[name] != 2 * n_steps:
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} "
+                                 f"times in {n_steps} steps, expected "
+                                 f"{2 * n_steps}")
+    ms, rate = dt_s * 1e3 / n_steps, n_cells * n_steps / dt_s
+    print(f"{tag}: {n_steps} steps, flags {flags}, state finite, launches "
+          f"{launches}; {ms:.3f} ms/step, {rate:.6g} cell-steps/s")
+    return launches, ms, rate
+
+
+def check_rsqrt(X, n):
+    """The central kernel's ``rsqrtf`` against ``torch.rsqrt`` over the
+    squared distance of every pair of the first ``n`` points (clamped as
+    the kernel clamps it); raises on any difference."""
+    import torch
+    from yalla_tpu_torch import _build
+    lib = _build.library()
+    x, y, z = (a[:n] for a in (X.x, X.y, X.z))
+    differ = 0
+    for i0 in range(0, n, 1024):
+        d2 = ((x[i0:i0 + 1024, None] - x[None, :]) ** 2
+              + (y[i0:i0 + 1024, None] - y[None, :]) ** 2
+              + (z[i0:i0 + 1024, None] - z[None, :]) ** 2)
+        d2 = torch.clamp(d2, min=1e-12).contiguous()
+        got = torch.empty_like(d2)
+        _build.check(lib.yalla_rsqrtf(d2.data_ptr(), got.data_ptr(),
+                                      d2.numel(),
+                                      _build.stream_handle(d2.device)),
+                     "rsqrtf")
+        differ += int((got != torch.rsqrt(d2)).sum())
+    if differ:
+        raise AssertionError(f"rsqrtf and torch.rsqrt differ on {differ} "
+                             f"of {n * n} pairs")
+    print(f"rsqrtf: bit-exact against torch.rsqrt on all {n * n} pairs of "
+          f"the settled 5k state")
+
+
+def sorting_kernel_checks(dev):
+    """Phases 6 and 7: K4 and K3 against their plain versions.  Returns
+    {kernel: (max abs err, ms, plain ms)}."""
+    import torch
+    from yalla_tpu_torch.interop import load_settled
+    from yalla_tpu_torch.models import branching as B
+    from yalla_tpu_torch.models import sorting as S
+    from yalla_tpu_torch.ops.central_mxu import (central_pairwise_mxu,
+                                                 central_pairwise_plain)
+    from yalla_tpu_torch.ops.common import friction_w_neighbour
+    from yalla_tpu_torch.ops.tile_pallas import (tile_pairwise_pallas,
+                                                 tile_pairwise_plain)
+    from yalla_tpu_torch.solvers import augment
+    n = N5_CELLS
+    sp = S.Params()
+    X, ov = load_settled(SETTLED_5K, S.Cell, dev)
+    check_rsqrt(X, n)
+    out = {}
+    for name, force, kernel, plain, atol in (
+            ("central_pair", S.make_adhesion_central(sp),
+             central_pairwise_mxu, central_pairwise_plain, K4_ATOL),
+            ("tile_pair", S.make_adhesion(sp), tile_pairwise_pallas,
+             tile_pairwise_plain, ATOL)):
+        def k(force=force, kernel=kernel):
+            return kernel(force, friction_w_neighbour, X, ov, n)
+
+        def pl(force=force, plain=plain):
+            return plain(force, friction_w_neighbour, X, ov, n)
+        got, want = k(), pl()
+        torch.cuda.synchronize()
+        err = compare_sums(f"{name} 5k", flatten(got, "", n),
+                           flatten(want, "", n), {"sum_f"}, atol)
+        ms, plain_ms = cuda_ms(k, 20), cuda_ms(pl, 5)
+        out[name] = (err, ms, plain_ms)
+        print(f"{name} on the settled 5k sorting state ({X.x.shape[0]} "
+              f"rows): sum_f exact, max abs err {err:.3g} (rtol {RTOL}, "
+              f"atol {atol} x max(1, max|plain|)); {ms:.4f} ms/pass vs "
+              f"plain {plain_ms:.4f} ms/pass")
+
+    Xb, ovb = load_settled(SETTLED_SMALL, B.Cell, dev)
+    Xb = augment(Xb, N_SMALL, B.precompute)
+    bforce = B.make_force(B.Params())
+    got = tile_pairwise_pallas(bforce, friction_w_neighbour, Xb, ovb,
+                               N_SMALL)
+    want = tile_pairwise_plain(bforce, friction_w_neighbour, Xb, ovb,
+                               N_SMALL)
+    torch.cuda.synchronize()
+    err = compare_sums("tile_pair branching", flatten(got, "", N_SMALL),
+                       flatten(want, "", N_SMALL), {"sum_f", "epi_nbs"})
+    print(f"tile_pair on the settled {N_SMALL}-cell branching state with "
+          f"polarity channels ({Xb.x.shape[0]} rows): sum_f and epi_nbs "
+          f"exact, max abs err {err:.3g}")
+    err5, ms, plain_ms = out["tile_pair"]
+    out["tile_pair"] = (max(err5, err), ms, plain_ms)
+    return out
+
+
+def sorting_engines():
+    """The 5k slice's two all-pairs runs, (tag, engine, force, kernel,
+    n_pad): ``bench_state.json`` ``sorting_5000``'s engine with the central
+    adhesion, and its ``tile_pallas`` contender with the hand-written
+    adhesion, both at the configuration's row count."""
+    from yalla_tpu_torch.interop import bench_config, bench_engine
+    from yalla_tpu_torch.models import sorting as S
+    cfg = bench_config(ROOT / "bench_state.json", SORT_KEY)
+    sp = S.Params()
+    return (("5k central", bench_engine(cfg), S.make_adhesion_central(sp),
+             "central_pair", cfg["n_pad"]),
+            ("5k tile", bench_engine(dict(cfg, engine="tile_pallas")),
+             S.make_adhesion(sp), "tile_pair", cfg["n_pad"]))
+
+
+def sorting_gpu_vs_cpu(dev):
+    """Phase 8: 2 steps of each 5k run on the GPU against the same steps
+    through the plain versions on the CPU."""
+    import numpy as np
+    from yalla_tpu_torch.models import sorting as S
+    sp = S.Params()
+    for tag, engine, force, _, n_pad in sorting_engines():
+        ends = {}
+        for d in ("cpu", dev):
+            s = solution(SETTLED_5K, N5_CELLS, engine, d, sp.r_max,
+                         Cell=S.Cell, n_pad=n_pad)
+            s.take_steps(2, sp.dt, force)
+            ends[d] = s.copy_to_host()
+        for f in S.Cell._fields:
+            a, b = (getattr(ends[d], f)[:N5_CELLS] for d in (dev, "cpu"))
+            if not (np.abs(a - b) <= 1e-6 + 1e-2 * np.abs(b)).all():
+                raise AssertionError(f"{tag} field {f}: GPU and CPU "
+                                     f"disagree (max abs err "
+                                     f"{np.abs(a - b).max():g})")
+        print(f"{tag}: 2 steps on the GPU within atol 1e-6 + rtol 1e-2 of "
+              f"the CPU plain path in every field")
+
+
+def sorting_slices(dev):
+    """Phase 9: the 5k slice at ``bench_state.json`` ``sorting_5000`` on
+    each engine.  Returns {kernel: launches of its run}."""
+    from yalla_tpu_torch.models import sorting as S
+    sp = S.Params()
+    launches = {}
+    for tag, engine, force, kernel, n_pad in sorting_engines():
+        sol = solution(SETTLED_5K, N5_CELLS, engine, dev, sp.r_max,
+                       Cell=S.Cell, n_pad=n_pad)
+        counts, _, _ = run_slice(f"{tag} slice", sol, N5_CELLS, N5, sp.dt,
+                                 force, [kernel])
+        launches[kernel] = counts[kernel]
+    return launches
 
 
 def main():
@@ -216,32 +433,15 @@ def main():
 
     # ---- the slice: Solution + LatticeEngine at the main path's config ---
     sol = solution(SETTLED, N_CELLS, engine, dev, cube)
-    sol.take_steps(1, p.dt, force, precompute=B.precompute)   # warm-up
-    pour_pallas.launches = 0
-    lattice_pairwise_pallas.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    aux = sol.take_steps(N_STEPS, p.dt, force, precompute=B.precompute)
-    torch.cuda.synchronize()
-    dt_s = time.perf_counter() - t0
-    launches = {"pour": pour_pallas.launches,
-                "lattice_pair": lattice_pairwise_pallas.launches}
-    flags = {k: float(v.max()) for k, v in aux.items()
-             if k.startswith("__err_")}
-    if any(flags.values()):
-        raise AssertionError(f"slice flags set: {flags}")
-    X_end = sol.copy_to_host()
-    for f, a in zip(X_end._fields, X_end):
-        if a.shape != (sol.n_pad,) or not np.isfinite(a).all():
-            raise AssertionError(f"slice state field {f} is not finite")
-    for name, count in launches.items():
-        if count != 2 * N_STEPS:
-            raise AssertionError(f"{name} launched {count} times in "
-                                 f"{N_STEPS} steps, expected {2 * N_STEPS}")
-    rate = N_CELLS * N_STEPS / dt_s
-    print(f"slice: {N_STEPS} steps, flags {flags}, state finite, launches "
-          f"{launches}; {dt_s * 1e3 / N_STEPS:.2f} ms/step, "
-          f"{rate:.6g} cell-steps/s")
+    launches, _, _ = run_slice("slice", sol, N_CELLS, N_STEPS, p.dt, force,
+                               ["pour", "lattice_pair"],
+                               precompute=B.precompute)
+    del sol
+
+    # ---- the 5k sorting path: its kernels, then the slice -----------------
+    sort_k = sorting_kernel_checks(dev)
+    sorting_gpu_vs_cpu(dev)
+    launches.update(sorting_slices(dev))
 
     kernels = [
         {"name": "pour", "route": "cuda",
@@ -255,6 +455,15 @@ def main():
          "launches": launches["lattice_pair"], "max_abs_err": pair_err,
          "ms": pair_ms, "plain_ms": pair_plain_ms},
     ]
+    for name, src, tpu in (
+            ("central_pair", "central_pair.cu", "central_mxu.py:268"),
+            ("tile_pair", "tile_pair.cu", "tile_pallas.py:118")):
+        err, ms, plain_ms = sort_k[name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"yalla_tpu_torch/csrc/{src}",
+                        "replaces": f"yalla_tpu/ops/{tpu}",
+                        "launches": launches[name], "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

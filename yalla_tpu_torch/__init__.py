@@ -10,7 +10,9 @@ version for CPU tensors.  This package never imports JAX.
 
 from .dtypes import Float3, make_pt
 from .solvers import (LatticeEngine, SimulationError, Solution, TileEngine,
-                      friction_w_neighbour, heun_step)
+                      friction_on_background, friction_w_neighbour,
+                      heun_step, heun_steps)
 
 __all__ = ["Float3", "make_pt", "LatticeEngine", "SimulationError",
-           "Solution", "TileEngine", "friction_w_neighbour", "heun_step"]
+           "Solution", "TileEngine", "friction_on_background",
+           "friction_w_neighbour", "heun_step", "heun_steps"]

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels and bind them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, at first use, into
-``yalla_tpu_torch/_build/`` (git-ignored).  The library's file name
+Every ``csrc/*.cu`` file (with the shared ``csrc/*.cuh`` headers) is
+compiled by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per file, all
+started together, and linked into one shared library with a plain C
+interface, at first use, into ``yalla_tpu_torch/_build/`` (git-ignored).  The library's file name
 carries a hash of the sources and flags, so an edited kernel is rebuilt
 and a built one is reused.  No PyTorch header is compiled, which keeps
 the build to seconds.  nvcc's output, with ptxas's registers and spills
@@ -26,8 +27,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # No fast-math: binning and the cutoff must decide exactly as the plain
 # torch versions do.
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +42,15 @@ SIGNATURES = {
     # gx, gy, gz, C, cube_size, params[10], out, eout, stream
     "yalla_lattice_pair_branching": [_P, _P, _P, _P, _P, _P, _I,
                                      _I, _I, _I, _I, _F, _P, _P, _P, _P],
+    # chans[kFields + 3], n, n_pad, params, out, stream
+    "yalla_tile_pair_branching": [_P, _I, _I, _P, _P, _P],
+    "yalla_tile_pair_sorting": [_P, _I, _I, _P, _P, _P],
+    # Ri, Cj, n, n_pad, n_fields, n_channels, arities, friction, params,
+    # out, stream
+    "yalla_central_pair_sorting": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _P,
+                                   _P],
+    # in, out, n, stream
+    "yalla_rsqrtf": [_P, _P, _L, _P],
 }
 
 
@@ -63,20 +74,43 @@ def _source_hash():
     return h.hexdigest()[:16]
 
 
+def _run(procs, cmds):
+    """Wait for every process; raise with the output of any that failed.
+    Returns their output."""
+    logs = [p.communicate()[0] for p in procs]
+    for p, cmd, log in zip(procs, cmds, logs):
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    return logs
+
+
+def _start(cmd):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def build():
     """Compile the kernels if needed; returns the library's path."""
     out = BUILD_DIR / f"libyalla_kernels_{_source_hash()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(f) for f in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    try:
+        logs = _run([_start(c) for c in cmds], cmds)
+        tmp = out.with_name(f"{tag}.tmp.so")
+        link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        logs += _run([_start(link)], [link])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, out)
     return out
 

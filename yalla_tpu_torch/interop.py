@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .dtypes import Float3
-from .solvers import LatticeEngine
+from .solvers import LatticeEngine, TileEngine
 
 __all__ = ["pt_from_numpy", "pt_to_numpy", "load_settled", "params_from",
            "bench_config", "bench_engine", "BENCH_EXTRAS_CAP"]
@@ -69,9 +69,16 @@ def bench_config(path, key):
 
 
 def bench_engine(cfg):
-    """The LatticeEngine the benchmark runs for ``cfg``: its grid,
+    """The engine the benchmark runs for ``cfg``.  The all-pairs engines
+    (``"tile_central_mxu"``, ``"tile_pallas"``) are the TileEngine on its
+    central or tile kernel; the caller gives ``Solution`` the benchmark's
+    row count, ``cfg["n_pad"]``.  Otherwise a LatticeEngine: its grid,
     capacity and cube size, overflow extras sized as the benchmark sizes
     them, the kernel path, and the per-pass rebuild cadence."""
+    tile = {"tile_central_mxu": TileEngine(mxu=True),
+            "tile_pallas": TileEngine(pallas=True)}
+    if cfg.get("engine") in tile:
+        return tile[cfg["engine"]]
     if cfg.get("rebin") or cfg.get("x_split", 1) != 1:
         raise ValueError(f"unsupported benchmark cadence: {cfg}")
     e_b = int(cfg["extras_block_cap"])

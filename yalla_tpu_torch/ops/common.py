@@ -17,6 +17,7 @@ import torch
 
 __all__ = [
     "friction_w_neighbour",
+    "friction_on_background",
     "evaluate_pairs",
     "apply_derived_aux",
     "apply_post_pair",
@@ -36,6 +37,21 @@ def friction_w_neighbour(Xi, r, dist, i, j):
     """Default friction: points closer than 1 exert friction on each other
     (ref solvers.cuh:27-35)."""
     return ((i != j) & (dist < 1.0)).to(torch.float32)
+
+
+def friction_on_background(Xi, r, dist, i, j):
+    """No neighbour friction, drag against the background only
+    (ref solvers.cuh:37-41)."""
+    return torch.zeros_like(dist)
+
+
+# central-form declarations for the all-pairs central kernel
+# (ops/central_mxu.py): f(dist, Si, Sj) with invalid pairs -- padding and
+# the i == j diagonal -- excluded by distance poisoning
+friction_w_neighbour.central_coef = \
+    lambda dist, Si, Sj: (dist < 1.0).to(torch.float32)
+friction_on_background.central_coef = \
+    lambda dist, Si, Sj: torch.zeros_like(dist)
 
 
 def mask_tree(pt, mask):

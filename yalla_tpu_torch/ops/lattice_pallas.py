@@ -8,23 +8,18 @@ in extras order when the layout carries overflow extras (with the scalar
 
 * ``lattice_pairwise_pallas`` is the kernel wrapper: a CUDA tensor goes to
   ``csrc/lattice_pair.cu``, a CPU tensor to ``lattice_pairwise_plain``.
-  The JAX kernel is force-generic because it traces any jnp force; a CUDA
-  kernel is compiled, so a force declares the device functor that
-  implements it (``force.cuda_functor``), and a force without one is
-  refused on the GPU.
+  The kernel runs forces that declare a device functor
+  (``ops/functors.py``) and refuses the rest on the GPU.
 * ``lattice_pairwise_plain`` is generic over any torch force: the
   stencil lattice pass of ``lattice_xla`` plus an extras pass built on
   ``evaluate_pairs``.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from .common import (cube_coord, cube_ids, evaluate_pairs,
-                     friction_w_neighbour, grid_dims, split_force_output)
+from .common import cube_coord, cube_ids, evaluate_pairs, grid_dims
+from .functors import pair_functor, param_array, require, unpack_sums
 from .lattice_xla import lattice_pairwise_resident, stencil_slots
 
 __all__ = ["lattice_pairwise_pallas", "lattice_pairwise_plain",
@@ -33,19 +28,6 @@ __all__ = ["lattice_pairwise_pallas", "lattice_pairwise_plain",
 # y-block height of the JAX kernel's (z, y) blocks; its extras sidecar
 # tables are per block, and ``__err_extras_block`` counts their overflow
 DEFAULT_Y_BLOCK = 16
-
-# CUDA functors of csrc/lattice_pair.cu: C entry point, the Pt fields the
-# kernel reads (then old_v x y z), the dF fields and aux channels it sums
-# (then sum_f and sum_v x y z), and the parameter values it takes.
-_FUNCTORS = {
-    "branching": dict(
-        entry="yalla_lattice_pair_branching",
-        fields=("x", "y", "z", "u", "v", "ctype", "px", "py", "pz"),
-        dF=("x", "y", "z", "u", "v"),
-        aux=("epi_nbs", "pg_x", "pg_y", "pg_z"),
-        params=("r_max", "lam", "D_u", "D_v", "f_v", "f_u", "g_u", "m_u",
-                "m_v", "s_u")),
-}
 
 
 def _y_block(gy):
@@ -159,41 +141,10 @@ def lattice_pairwise_plain(pw_int, pw_friction, layout, n, cube_size, *,
     return F, sum_f, sum_v, aux, (Fe, sum_fe, sum_ve, aux_e)
 
 
-def _require(t, shape, dtype, device, what):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
-            or not t.is_contiguous():
-        raise ValueError(f"lattice pair kernel: {what} must be a contiguous "
-                         f"{dtype} {shape} tensor on {device}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    return t
-
-
 def _force_spec(pw_int, pw_friction):
-    functor = getattr(pw_int, "cuda_functor", None)
-    if functor is None or functor[0] not in _FUNCTORS:
-        raise ValueError(
-            "lattice pair kernel: the force declares no CUDA functor "
-            "(force.cuda_functor); only forces with a device functor in "
-            "csrc/lattice_pair.cu run on the GPU")
-    if pw_friction is not friction_w_neighbour:
-        raise ValueError("lattice pair kernel: only friction_w_neighbour "
-                         "is implemented on the GPU")
-    spec, params = _FUNCTORS[functor[0]], functor[1]
-    if getattr(params, "r_max", 1.0) != 1.0:
-        raise ValueError("lattice pair kernel: the branching functor "
-                         "derives mes_nbs from the friction sum, which "
-                         "needs r_max == 1")
-    return spec, params
-
-
-@functools.lru_cache(maxsize=16)
-def _dF_type(pw_int, pt_type):
-    """The force's dF point type and aux keys, from one scalar probe on
-    the CPU (memoised: the probe costs ~0.5 ms of host time per pass)."""
-    one = torch.ones(1)
-    Xi = pt_type(*([one] * len(pt_type._fields)))
-    dF, aux = split_force_output(pw_int(Xi, Xi - Xi, one, one, one))
-    return type(dF), tuple(aux)
+    """``(spec, params)`` of the force's functor in the lattice kernel."""
+    return pair_functor(pw_int, pw_friction, "lattice",
+                        "the plain lattice path on CPU tensors")
 
 
 def lattice_pairwise_pallas(pw_int, pw_friction, layout, n, cube_size, *,
@@ -222,9 +173,10 @@ def lattice_pairwise_pallas(pw_int, pw_friction, layout, n, cube_size, *,
     f32 = torch.float32
 
     def channels(P, ov, size, what):
-        return [_require(getattr(P, f), (size,), f32, dev, f"{what}.{f}")
+        what = f"lattice pair kernel: {what}"
+        return [require(getattr(P, f), (size,), f32, dev, f"{what}.{f}")
                 for f in spec["fields"]] + \
-            [_require(a, (size,), f32, dev, f"{what} old_v") for a in ov]
+            [require(a, (size,), f32, dev, f"{what} old_v") for a in ov]
 
     chans = channels(layout.T, layout.Tov, n_slots, "T")
     occ = (layout.pid < n_pad).to(torch.uint8)
@@ -249,32 +201,19 @@ def lattice_pairwise_pallas(pw_int, pw_friction, layout, n, cube_size, *,
     else:
         eout = None
         e_args = (None, None, None, None, 0)
-    pvals = (ctypes.c_float * len(spec["params"]))(
-        *[float(getattr(params, k)) for k in spec["params"]])
     lib = _build.library()
     lattice_pairwise_pallas.launches += 1
-    _build.check(getattr(lib, spec["entry"])(
+    _build.check(getattr(lib, spec["entries"]["lattice"])(
         _build.pointers(chans), occ.data_ptr(), *e_args, gx, gy, gz, C,
-        float(cube_size), pvals, out.data_ptr(),
+        float(cube_size), param_array(spec, params), out.data_ptr(),
         eout.data_ptr() if has_e else None, _build.stream_handle(dev)),
         "lattice pair kernel")
 
-    dF_type, aux_keys = _dF_type(pw_int, type(layout.T))
-    assert set(aux_keys) == set(spec["aux"]), aux_keys
-
-    def unpack(rows):
-        zero = torch.zeros_like(rows[0])
-        k = len(spec["dF"])
-        F = dF_type(**{f: rows[spec["dF"].index(f)] if f in spec["dF"]
-                       else zero for f in dF_type._fields})
-        aux = {a: rows[k + i] for i, a in enumerate(spec["aux"])}
-        m = k + len(spec["aux"])
-        return F, rows[m], (rows[m + 1], rows[m + 2], rows[m + 3]), aux
-
-    F, sum_f, sum_v, aux = unpack(out)
+    F, sum_f, sum_v, aux = unpack_sums(out, spec, pw_int, type(layout.T))
     if not has_e:
         return F, sum_f, sum_v, aux
-    Fe, sum_fe, sum_ve, aux_e = unpack(eout)
+    Fe, sum_fe, sum_ve, aux_e = unpack_sums(eout, spec, pw_int,
+                                            type(layout.T))
     aux_e["__err_extras_block"] = extras_block_overflow(
         layout, cube_size, grid_size, z_block, extras_block_cap)
     return F, sum_f, sum_v, aux, (Fe, sum_fe, sum_ve, aux_e)

@@ -6,9 +6,9 @@ neighbour velocity (ref solvers.cuh:109-161), and dw/dt = F_w for every
 other field.  PyTorch runs eagerly, so a step is a plain function and a
 run of steps a Python loop; point counts are Python ints.
 
-Ported so far: the all-pairs ``TileEngine`` (the brute-force oracle, plain
-torch) and the ``LatticeEngine`` per-pass path, which ``take_steps``
-routes to ``ops.lattice_xla.lattice_heun_steps``.
+Ported so far: the all-pairs ``TileEngine`` (the plain brute-force oracle
+and the all-pairs kernels K3 and K4) and the ``LatticeEngine`` per-pass
+path, which ``take_steps`` routes to ``ops.lattice_xla.lattice_heun_steps``.
 """
 from __future__ import annotations
 
@@ -19,11 +19,13 @@ import torch
 
 from .dtypes import Float3, make_pt
 from .ops.common import (ERR_PREFIX, apply_derived_aux, apply_post_pair,
-                         friction_w_neighbour, grid_dims, mask_tree)
+                         friction_on_background, friction_w_neighbour,
+                         grid_dims, mask_tree)
 from .ops.pairwise_xla import tile_pairwise
 
 __all__ = ["TileEngine", "LatticeEngine", "Solution", "SimulationError",
-           "heun_step", "friction_w_neighbour"]
+           "heun_step", "heun_steps", "friction_w_neighbour",
+           "friction_on_background"]
 
 
 class SimulationError(RuntimeError):
@@ -34,11 +36,40 @@ class SimulationError(RuntimeError):
 
 @dataclass(frozen=True)
 class TileEngine:
-    """All-pairs O(N^2) (ref Tile_computer, solvers.cuh:324-342)."""
+    """All-pairs O(N^2) (ref Tile_computer, solvers.cuh:324-342).
+
+    Routing, as in the JAX engine: a ``central_force`` with a friction
+    carrying ``central_coef`` goes to the central kernel (``mxu``,
+    ``ops/central_mxu.py``, K4); otherwise ``pallas`` goes to the tile
+    kernel (``ops/tile_pallas.py``, K3); otherwise to the plain
+    ``tile_pairwise`` in ``j_block`` columns (default 1024).  ``None``
+    resolves to the kernels on CUDA tensors (as JAX resolves it on the
+    TPU) and to the plain path on the CPU; ``mxu`` defaults to ``pallas``.
+    The kernel wrappers run their plain versions on CPU tensors.  The
+    ``n_pad % 128`` condition is the TPU kernels' layout rule: it is kept
+    on the CPU, where it keeps the routing identical to JAX's, and dropped
+    on CUDA, whose kernels take any ``n_pad``."""
+    j_block: int | None = None
+    pallas: bool | None = None
+    mxu: bool | None = None
 
     def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size):
         del cube_size  # no cutoff in the all-pairs engine
-        return tile_pairwise(pw_int, pw_friction, X, old_v, n)
+        cuda = X.x.device.type == "cuda"
+        use_pallas = self.pallas if self.pallas is not None else cuda
+        use_mxu = self.mxu if self.mxu is not None else use_pallas
+        aligned = cuda or X.x.shape[0] % 128 == 0
+        if use_mxu and aligned \
+                and getattr(pw_int, "fields", None) is not None \
+                and hasattr(pw_int, "coef") \
+                and hasattr(pw_friction, "central_coef"):
+            from .ops.central_mxu import central_pairwise_mxu
+            return central_pairwise_mxu(pw_int, pw_friction, X, old_v, n)
+        if use_pallas and aligned:
+            from .ops.tile_pallas import tile_pairwise_pallas
+            return tile_pairwise_pallas(pw_int, pw_friction, X, old_v, n)
+        return tile_pairwise(pw_int, pw_friction, X, old_v, n,
+                             j_block=self.j_block or 1024)
 
 
 @dataclass(frozen=True)
@@ -159,6 +190,22 @@ def heun_step(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
     return X_new, old_v_new, aux
 
 
+def heun_steps(n_steps, engine, pw_int, pw_friction, fix_mode, X, old_v, n,
+               dt, cube_size, fix_point=0, precompute=None):
+    """``n_steps`` steps of ``heun_step``.  Failure flags are the max over
+    the steps (a transient overflow mid-run already mis-integrated the
+    state); every other aux channel is the last step's."""
+    errs, aux = {}, {}
+    for _ in range(int(n_steps)):
+        X, old_v, aux = heun_step(engine, pw_int, pw_friction, fix_mode, X,
+                                  old_v, n, dt, cube_size, fix_point,
+                                  precompute)
+        for k, v in aux.items():
+            if k.startswith(ERR_PREFIX):
+                errs[k] = torch.maximum(errs[k], v) if k in errs else v
+    return X, old_v, {**aux, **errs}
+
+
 # --------------------------------------------------------------------------
 # Solution facade (ref Solution<Pt, Solver>, solvers.cuh:60-106)
 # --------------------------------------------------------------------------
@@ -174,17 +221,22 @@ class Solution:
 
     ``h_X`` is a Pt of numpy arrays (mutable in place); ``copy_to_device``
     / ``copy_to_host`` move it to and from ``device``.  A CUDA device is
-    used only if it exists: asking for one without a GPU raises."""
+    used only if it exists: asking for one without a GPU raises.  ``n_pad``
+    (default: ``n_max`` rounded up as the JAX package rounds it) is the
+    row count of the device state."""
 
     def __init__(self, pt_type, n_max, *, engine=None, cube_size=1.0,
-                 device="cpu"):
+                 device="cpu", n_pad=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"Solution(device={device!r}): no CUDA device is available")
         self.pt_type = pt_type
         self.n_max = int(n_max)
-        self.n_pad = _pad_size(self.n_max)
+        self.n_pad = int(n_pad) if n_pad else _pad_size(self.n_max)
+        if self.n_pad < self.n_max:
+            raise ValueError(f"Solution: n_pad {self.n_pad} < n_max "
+                             f"{self.n_max}")
         self.engine = engine if engine is not None else TileEngine()
         self.cube_size = float(cube_size)
         self.h_X = pt_type(*[np.zeros(self.n_pad, np.float32)
@@ -224,12 +276,20 @@ class Solution:
         self._fix_point = int(point_id)
 
     # -- integration ----------------------------------------------------------
+    def take_step(self, dt, pw_int, *, pw_friction=friction_w_neighbour,
+                  precompute=None, check_errors=True):
+        """One Heun step (ref Solution::take_step, solvers.cuh:94-105):
+        ``take_steps(1, ...)``."""
+        return self.take_steps(1, dt, pw_int, pw_friction=pw_friction,
+                               precompute=precompute,
+                               check_errors=check_errors)
+
     def take_steps(self, n_steps, dt, pw_int, *,
                    pw_friction=friction_w_neighbour, precompute=None,
                    check_errors=True):
         """``n_steps`` Heun steps.  With a LatticeEngine this runs the
-        lattice integrator (per-pass rebuild); with a TileEngine, a loop
-        of all-pairs steps."""
+        lattice integrator (per-pass rebuild); with a TileEngine,
+        :func:`heun_steps`."""
         if self.d_X is None:
             self.copy_to_device()
         e = self.engine
@@ -242,18 +302,10 @@ class Solution:
                 self._fix_point, precompute, e.pallas, None, None, None,
                 e.extras_cap, e.extras_block_cap)
         else:
-            X, old_v, errs = self.d_X, self.d_old_v, {}
-            for _ in range(int(n_steps)):
-                X, old_v, aux = heun_step(
-                    e, pw_int, pw_friction, self._fix_mode, X, old_v,
-                    self.d_n, dt, self.cube_size, self._fix_point,
-                    precompute)
-                for k, v in aux.items():
-                    if k.startswith(ERR_PREFIX):
-                        errs[k] = torch.maximum(errs[k], v) \
-                            if k in errs else v
-            self.d_X, self.d_old_v = X, old_v
-            self.aux = {**aux, **errs} if n_steps else {}
+            self.d_X, self.d_old_v, self.aux = heun_steps(
+                n_steps, e, pw_int, pw_friction, self._fix_mode, self.d_X,
+                self.d_old_v, self.d_n, dt, self.cube_size, self._fix_point,
+                precompute)
         if check_errors:
             self._check_errors()
         return self.aux
