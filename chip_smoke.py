@@ -6,12 +6,15 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``yalla_tpu_torch/csrc`` and drives
-the port's two paths: the branching model's Heun step at 500k cells on the
-dense cube lattice, rebuilt before every pass, at the settings ``bench.py``
-certifies (``bench_state.json``, ``branching_500000``), and the 5k sorting
-model's Heun step on the all-pairs engine (``sorting_5000``), each from
-its settled state in ``.bench_cache``.  Phases, each reported on its own
-line:
+the port's three paths: the branching model's Heun step at 500k cells on
+the dense cube lattice, rebuilt before every pass, at the settings
+``bench.py`` certifies (``bench_state.json``, ``branching_500000``), and
+the 5k sorting model's Heun step on the all-pairs engine
+(``sorting_5000``), each from its settled state in ``.bench_cache``; and
+the growth_w_wall model's step at 100k cells on the Gabriel engine
+(``models/growth_w_wall.py``, the engine settings and synthetic tissue of
+``benchmarks/bench_gabriel_lattice.py``).  Phases, each reported on its
+own line:
 
 1. the card's name and power limit, and the kernel build time;
 2. the pour kernel (K2) against its plain version on the main path's
@@ -48,7 +51,20 @@ line:
    after one warm-up step, flags 0, state finite, K4 launched 2 * N5
    times; then the same with ``TileEngine(pallas=True)`` and the
    hand-written adhesion, K3 launched 2 * N5 times; ms/step and
-   cell-steps/s of each.
+   cell-steps/s of each;
+10. the Gabriel lattice kernel (K5) against its plain version on one pass
+    of the 100k half-space tissue with the growth_w_wall force and
+    friction: the friction sum (kept non-wall pairs) exact, every flag 0
+    and equal, F and sum_v within ``compare_sums``'s tolerance; ms per
+    pass of each, and of the lattice build inside them;
+11. the small Gabriel slice: 2 steps of the growth_w_wall loop on the
+    2,000-cell tissue (gs 16, C 8, NC 20; the protrusion draws made from a
+    numpy seed) on the GPU against the same steps on the CPU plain path,
+    every field within the reference's ``isclose``;
+12. the 100k growth_w_wall slice: ``Solution`` + ``GabrielEngine(
+    lattice=True, **GABRIEL_100K)`` and ``Links``, ``NG`` steps of ``Links.update`` + ``take_step`` after one
+    warm-up step, every flag 0, the state finite, K5 and K2 launched
+    2 * NG times; ms/step and cell-steps/s.
 
 It then prints the kernels' JSON record and, last, the device record.
 Any failure raises and exits non-zero.  Without a CUDA device it exits
@@ -73,6 +89,15 @@ N5_CELLS = 5000
 SETTLED_5K = ROOT / ".bench_cache" / "settled_sorting_p5120_5000_s0_v1.npz"
 N5 = 200
 K4_ATOL = 1e-4
+NG_CELLS = 100_000
+NG = 20
+# bench_gabriel_lattice.py:43-58 at 100k cells has grid 48, C 8 and NC 20,
+# certified there with dead links.  Live protrusions contract the tissue:
+# the largest candidate count grows from 16 to 22 in 21 steps and a cube
+# fills to 9 by step 23, so the slice takes C 16 (the grid stays 48) and
+# NC 32.
+GABRIEL_100K = dict(grid_size=48, capacity=16, max_candidates=32)
+GABRIEL_SMALL = dict(grid_size=16, capacity=8, max_candidates=20)
 
 
 def cuda_ms(fn, reps):
@@ -143,12 +168,14 @@ def kernel_wrappers():
     """Each ported kernel's wrapper, whose ``launches`` counts its kernel
     launches, by the kernel's name in the JSON record."""
     from yalla_tpu_torch.ops.central_mxu import central_pairwise_mxu
+    from yalla_tpu_torch.ops.gabriel_pallas import gabriel_lattice_pallas
     from yalla_tpu_torch.ops.lattice_pallas import lattice_pairwise_pallas
     from yalla_tpu_torch.ops.lattice_pour import pour_pallas
     from yalla_tpu_torch.ops.tile_pallas import tile_pairwise_pallas
     return {"pour": pour_pallas, "lattice_pair": lattice_pairwise_pallas,
             "central_pair": central_pairwise_mxu,
-            "tile_pair": tile_pairwise_pallas}
+            "tile_pair": tile_pairwise_pallas,
+            "gabriel_pair": gabriel_lattice_pallas}
 
 
 def run_slice(tag, sol, n_cells, n_steps, dt, force, expect,
@@ -325,6 +352,150 @@ def sorting_slices(dev):
     return launches
 
 
+def gabriel_kernel_check(dev):
+    """Phase 10: K5 against its plain version on the 100k tissue.  Returns
+    (max abs err, ms, plain ms)."""
+    import torch
+    from yalla_tpu_torch.models import growth_w_wall as W
+    from yalla_tpu_torch.ops.gabriel_pallas import (gabriel_lattice_pallas,
+                                                    gabriel_lattice_plain)
+    from yalla_tpu_torch.ops.lattice_xla import lattice_build
+    from yalla_tpu_torch.solvers import Solution
+    n_pad = Solution(W.Float3, NG_CELLS).n_pad
+    h, n = W.half_space_tissue(NG_CELLS, n_pad)
+    X = W.Float3(*(torch.as_tensor(h[f], device=dev) for f in "xyz"))
+    g = torch.Generator().manual_seed(0)
+    ov = W.Float3(*(0.01 * torch.randn(n_pad, generator=g).to(dev)
+                    for _ in range(3)))
+    args = (W.relu_force, W.wall_friction, X, ov, n, W.r_max)
+
+    def k5():
+        return gabriel_lattice_pallas(*args, **GABRIEL_100K)
+
+    def k5_plain():
+        return gabriel_lattice_plain(*args, **GABRIEL_100K)
+    got, want = k5(), k5_plain()
+    torch.cuda.synchronize()
+    flags = {k: float(v.max()) for k, v in want[3].items()}
+    if any(flags.values()):
+        raise AssertionError(f"K5 100k: flags set on the tissue: {flags}")
+    exact = {"sum_f", *want[3]}
+    err = compare_sums("K5 100k", flatten(got, "", n), flatten(want, "", n),
+                       exact)
+    kept = int(want[1][:n].sum())
+    ms, plain_ms = cuda_ms(k5, 20), cuda_ms(k5_plain, 3)
+    build_ms = cuda_ms(lambda: lattice_build(
+        X, ov, n, W.r_max, GABRIEL_100K["grid_size"],
+        GABRIEL_100K["capacity"]), 20)
+    print(f"K5 Gabriel lattice on the 100k half-space tissue ({n} cells in "
+          f"{n_pad} rows, gs {GABRIEL_100K['grid_size']}, C "
+          f"{GABRIEL_100K['capacity']}, NC "
+          f"{GABRIEL_100K['max_candidates']}): {kept} kept non-wall pair "
+          f"ends, sum_f and flags {flags} exact, max abs err {err:.3g} (rtol "
+          f"{RTOL}, atol {ATOL} x max(1, max|plain|)); {ms:.4f} ms/pass vs "
+          f"plain {plain_ms:.4f} ms/pass, of which the lattice build "
+          f"{build_ms:.4f} ms")
+    return err, ms, plain_ms
+
+
+def gabriel_run(device, n_cells, engine, n_steps, seed, links_seed=None):
+    """A growth_w_wall Solution and its Links on ``device`` after
+    ``n_steps`` steps of the example's loop (``Links.update`` then
+    ``take_step``).  With ``seed`` the protrusion draws come from a numpy
+    generator of that seed, so two devices see the same draws; without,
+    from the Links' own generator (seeded ``links_seed``)."""
+    import numpy as np
+    import torch
+    from yalla_tpu_torch.links import Draws, Links, link_wall_forces
+    from yalla_tpu_torch.models import growth_w_wall as W
+    sol = W.half_space_solution(n_cells, engine, device)
+    links = Links(n_cells, W.protrusion_strength, seed=links_seed,
+                  device=device)
+    links.set_d_n(sol.h_n)
+    rng = np.random.default_rng(seed) if seed is not None else None
+    aux = {}
+
+    def step():
+        draws = None
+        if rng is not None:
+            m = links.n_pad
+            draws = Draws(*(torch.as_tensor(a, device=device) for a in (
+                rng.integers(0, 27, m), rng.random(m, np.float32),
+                rng.random(m, np.float32))))
+        links.update(W.update_protrusions_wall, sol, draws=draws)
+        return sol.take_step(W.dt, W.relu_force, pw_friction=W.wall_friction,
+                             gen_forces=link_wall_forces(links, W.WALL))
+    for _ in range(n_steps):
+        aux = step()
+    return sol, step, aux
+
+
+def gabriel_gpu_vs_cpu(dev):
+    """Phase 11: the small Gabriel slice, GPU against CPU."""
+    import numpy as np
+    from yalla_tpu_torch.solvers import GabrielEngine
+    engine = GabrielEngine(lattice=True, **GABRIEL_SMALL)
+    ends = {}
+    for d in ("cpu", dev):
+        sol, _, _ = gabriel_run(d, 2000, engine, 2, seed=5)
+        ends[d] = sol.copy_to_host()
+    n = sol.h_n
+    for f in "xyz":
+        a, b = (getattr(ends[d], f)[:n] for d in (dev, "cpu"))
+        if not (np.abs(a - b) <= 1e-6 + 1e-2 * np.abs(b)).all():
+            raise AssertionError(f"small Gabriel slice field {f}: GPU and "
+                                 f"CPU disagree (max abs err "
+                                 f"{np.abs(a - b).max():g})")
+    print(f"small Gabriel slice: {n} cells, 2 steps of Links.update + "
+          f"take_step on the GPU within atol 1e-6 + rtol 1e-2 of the CPU "
+          f"plain path in every field")
+
+
+def growth_w_wall_slice(dev):
+    """Phase 12: the 100k growth_w_wall slice.  Returns the launch counts
+    of its timed run."""
+    import numpy as np
+    import torch
+    from yalla_tpu_torch.dtypes import Float3
+    from yalla_tpu_torch.solvers import GabrielEngine, Solution
+    engine = GabrielEngine(lattice=True, **GABRIEL_100K)
+    # the solver name reaches the same engine class
+    assert isinstance(Solution(Float3, 10, solver="gabriel").engine,
+                      GabrielEngine)
+    sol, step, _ = gabriel_run(dev, NG_CELLS, engine, 1, seed=None,
+                               links_seed=15)          # one warm-up step
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(NG):
+        aux = step()     # take_step raises on any __err_ flag
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    flags = {k: float(v.max()) for k, v in aux.items()
+             if k.startswith("__err_")}
+    if any(flags.values()):
+        raise AssertionError(f"growth_w_wall slice flags set: {flags}")
+    X_end = sol.copy_to_host()
+    for f, a in zip(X_end._fields, X_end):
+        if not np.isfinite(a).all():
+            raise AssertionError(f"growth_w_wall slice field {f} is not "
+                                 f"finite")
+    for name in ("gabriel_pair", "pour"):
+        if launches[name] != 2 * NG:
+            raise AssertionError(f"growth_w_wall slice: {name} launched "
+                                 f"{launches[name]} times in {NG} steps, "
+                                 f"expected {2 * NG}")
+    n = sol.h_n
+    ms, rate = dt_s * 1e3 / NG, n * NG / dt_s
+    print(f"growth_w_wall slice: {n} cells, {NG} steps of Links.update + "
+          f"take_step, flags {flags}, state finite, launches {launches}; "
+          f"{ms:.3f} ms/step, {rate:.6g} cell-steps/s")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -443,6 +614,11 @@ def main():
     sorting_gpu_vs_cpu(dev)
     launches.update(sorting_slices(dev))
 
+    # ---- the 100k growth_w_wall path: K5, the small slice, the slice -----
+    k5 = gabriel_kernel_check(dev)
+    gabriel_gpu_vs_cpu(dev)
+    launches["gabriel_pair"] = growth_w_wall_slice(dev)["gabriel_pair"]
+
     kernels = [
         {"name": "pour", "route": "cuda",
          "source": "yalla_tpu_torch/csrc/pour.cu",
@@ -455,10 +631,13 @@ def main():
          "launches": launches["lattice_pair"], "max_abs_err": pair_err,
          "ms": pair_ms, "plain_ms": pair_plain_ms},
     ]
-    for name, src, tpu in (
-            ("central_pair", "central_pair.cu", "central_mxu.py:268"),
-            ("tile_pair", "tile_pair.cu", "tile_pallas.py:118")):
-        err, ms, plain_ms = sort_k[name]
+    for name, src, tpu, (err, ms, plain_ms) in (
+            ("central_pair", "central_pair.cu", "central_mxu.py:268",
+             sort_k["central_pair"]),
+            ("tile_pair", "tile_pair.cu", "tile_pallas.py:118",
+             sort_k["tile_pair"]),
+            ("gabriel_pair", "gabriel_pair.cu", "gabriel_pallas.py:271",
+             k5)):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"yalla_tpu_torch/csrc/{src}",
                         "replaces": f"yalla_tpu/ops/{tpu}",

@@ -10,7 +10,9 @@ of friction) and flags are exact, their other sums within rtol 1e-4 /
 atol 1e-5 of the plain version (f32 rounding of FMA-contracted force
 arithmetic and another summation order; 1e-4 for the central kernel's
 forces, whose factored form cancels two sums of size |x| * sum|w|); the
-slices within the reference's ``isclose`` of the same steps on the CPU.
+slices within the reference's ``isclose`` of the same steps on the CPU
+(the link and wall forces' ``index_add_`` sums in no fixed order on the
+GPU).
 """
 from pathlib import Path
 
@@ -21,12 +23,16 @@ import torch
 from helpers import isclose
 from yalla_tpu_torch.dtypes import Float3
 from yalla_tpu_torch.interop import load_settled
+from yalla_tpu_torch.links import Draws, Links, link_wall_forces
 from yalla_tpu_torch.models import branching as B
+from yalla_tpu_torch.models import growth_w_wall as W
 from yalla_tpu_torch.models import sorting as S
 from yalla_tpu_torch.ops.central_mxu import (central_pairwise_mxu,
                                              central_pairwise_plain)
 from yalla_tpu_torch.ops.common import (friction_on_background,
                                         friction_w_neighbour)
+from yalla_tpu_torch.ops.gabriel_pallas import (gabriel_lattice_pallas,
+                                                gabriel_lattice_plain)
 from yalla_tpu_torch.ops.lattice_pallas import (lattice_pairwise_pallas,
                                                 lattice_pairwise_plain)
 from yalla_tpu_torch.ops.lattice_pour import (DST_SENTINEL, pour_pallas,
@@ -34,8 +40,8 @@ from yalla_tpu_torch.ops.lattice_pour import (DST_SENTINEL, pour_pallas,
 from yalla_tpu_torch.ops.lattice_xla import lattice_build
 from yalla_tpu_torch.ops.tile_pallas import (tile_pairwise_pallas,
                                              tile_pairwise_plain)
-from yalla_tpu_torch.solvers import (LatticeEngine, Solution, TileEngine,
-                                     augment)
+from yalla_tpu_torch.solvers import (GabrielEngine, LatticeEngine, Solution,
+                                     TileEngine, augment)
 
 pytestmark = pytest.mark.gpu
 
@@ -231,3 +237,96 @@ def test_sorting_slice_on_gpu_matches_cpu(cuda, mxu):
     assert (l_cpu, l_gpu) == (0, 4)
     for f in S.Cell._fields:
         assert isclose(getattr(h_gpu, f)[:900], getattr(h_cpu, f)[:900]), f
+
+
+GABRIEL = dict(grid_size=16, capacity=8, max_candidates=20)
+
+
+def _half_space(device, n_cells=2000):
+    """The 2,000-cell half-space tissue (1,793 cells in 2,048 rows) with a
+    small seeded old_v."""
+    h, n = W.half_space_tissue(n_cells, 2048)
+    X = Float3(*(torch.as_tensor(h[f], device=device) for f in "xyz"))
+    g = torch.Generator().manual_seed(0)
+    ov = Float3(*(0.01 * torch.randn(2048, generator=g).to(device)
+                  for _ in range(3)))
+    return X, ov, n
+
+
+@pytest.mark.parametrize("nc", [20, 100])
+def test_gabriel_kernel_matches_plain(cuda, nc):
+    """K5 with the growth_w_wall functor, at both candidate-array sizes:
+    the friction sum (kept non-wall pairs) and the flags exact."""
+    X, ov, n = _half_space(cuda)
+    kw = dict(GABRIEL, max_candidates=nc)
+    before = gabriel_lattice_pallas.launches
+    got = gabriel_lattice_pallas(W.relu_force, W.wall_friction, X, ov, n,
+                                 1.0, **kw)
+    want = gabriel_lattice_plain(W.relu_force, W.wall_friction, X, ov, n,
+                                 1.0, **kw)
+    assert gabriel_lattice_pallas.launches == before + 1
+    assert set(got[3]) == set(want[3])
+    for k in want[3]:
+        assert torch.equal(got[3][k], want[3][k]), k
+        assert float(want[3][k].max()) == 0.0, k
+    assert torch.equal(got[1], want[1])
+    for a, b in zip(list(got[0]) + list(got[2]),
+                    list(want[0]) + list(want[2])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_gabriel_kernel_refuses_force_or_friction_without_functor(cuda):
+    X, ov, n = _half_space(cuda)
+
+    def plain_force(Xi, r, dist, i, j):
+        return Xi
+    with pytest.raises(ValueError, match="no CUDA functor"):
+        gabriel_lattice_pallas(plain_force, W.wall_friction, X, ov, n, 1.0,
+                               **GABRIEL)
+    with pytest.raises(ValueError, match="friction"):
+        gabriel_lattice_pallas(W.relu_force, friction_w_neighbour, X, ov, n,
+                               1.0, **GABRIEL)
+    with pytest.raises(ValueError, match="max_candidates"):
+        gabriel_lattice_pallas(W.relu_force, W.wall_friction, X, ov, n, 1.0,
+                               **dict(GABRIEL, max_candidates=129))
+    # GabrielEngine() and Solution(solver="gabriel") reach K5 on CUDA
+    with pytest.raises(ValueError, match="no CUDA functor"):
+        GabrielEngine(grid_size=16).pairwise(plain_force, W.wall_friction,
+                                             X, ov, n, 1.0)
+    sol = Solution(Float3, 2000, solver="gabriel", grid_size=16,
+                   device=cuda, n_pad=2048)
+    sol.h_X = Float3(*(a.cpu().numpy() for a in X))
+    sol.h_n = n
+    before = gabriel_lattice_pallas.launches
+    sol.take_step(W.dt, W.relu_force, pw_friction=W.wall_friction)
+    assert gabriel_lattice_pallas.launches == before + 2
+
+
+def gabriel_slice(device, n_steps=2, seed=0):
+    """``n_steps`` steps of the growth_w_wall loop on the 2,000-cell
+    tissue with K5's engine, the protrusion draws made from a numpy seed;
+    returns the host state and the launch counts of K5 and K2."""
+    sol = W.half_space_solution(2000, GabrielEngine(lattice=True, **GABRIEL),
+                                device)
+    links = Links(2000, W.protrusion_strength, device=device)
+    links.set_d_n(sol.h_n)
+    rng = np.random.default_rng(seed)
+    m = links.n_pad
+    gabriel_lattice_pallas.launches = pour_pallas.launches = 0
+    for _ in range(n_steps):
+        draws = Draws(*(torch.as_tensor(a, device=device) for a in (
+            rng.integers(0, 27, m), rng.random(m, np.float32),
+            rng.random(m, np.float32))))
+        links.update(W.update_protrusions_wall, sol, draws=draws)
+        sol.take_step(W.dt, W.relu_force, pw_friction=W.wall_friction,
+                      gen_forces=link_wall_forces(links, W.WALL))
+    return (sol.copy_to_host(), sol.h_n, gabriel_lattice_pallas.launches,
+            pour_pallas.launches)
+
+
+def test_gabriel_slice_on_gpu_matches_cpu(cuda):
+    h_cpu, n, *cpu_launches = gabriel_slice("cpu")
+    h_gpu, _, *gpu_launches = gabriel_slice(cuda)
+    assert cpu_launches == [0, 0] and gpu_launches == [4, 4]
+    for f in "xyz":
+        assert isclose(getattr(h_gpu, f)[:n], getattr(h_cpu, f)[:n]), f

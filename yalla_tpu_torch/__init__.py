@@ -9,10 +9,12 @@ version for CPU tensors.  This package never imports JAX.
 """
 
 from .dtypes import Float3, make_pt
-from .solvers import (LatticeEngine, SimulationError, Solution, TileEngine,
+from .solvers import (GabrielEngine, GenericForce, GridEngine, LatticeEngine,
+                      SimulationError, Solution, TileEngine,
                       friction_on_background, friction_w_neighbour,
                       heun_step, heun_steps)
 
-__all__ = ["Float3", "make_pt", "LatticeEngine", "SimulationError",
-           "Solution", "TileEngine", "friction_on_background",
-           "friction_w_neighbour", "heun_step", "heun_steps"]
+__all__ = ["Float3", "make_pt", "GabrielEngine", "GenericForce",
+           "GridEngine", "LatticeEngine", "SimulationError", "Solution",
+           "TileEngine", "friction_on_background", "friction_w_neighbour",
+           "heun_step", "heun_steps"]

@@ -1,14 +1,19 @@
-// Device force functors shared by the pair kernels (lattice_pair.cu, K1, and
-// tile_pair.cu, K3), and the pair distance they gate on.
+// Device force functors shared by the pair kernels (lattice_pair.cu, K1,
+// tile_pair.cu, K3, and gabriel_pair.cu, K5), and the pair distance they
+// gate on.
 //
 // A functor implements one torch force of the port (its ``cuda_functor``
-// declaration names it) together with friction_w_neighbour:
+// declaration names it) together with the friction its entry in
+// ops/functors.py names (``friction``):
 //   Cell            the per-point channels it reads, all float, in the order
 //                   of the ``fields`` of its entry in ops/functors.py;
 //   kFields, kSums  the channel count and the number of per-point sums;
 //   pair(a, b, dist, ovx, ovy, ovz, acc)   adds the pair (i != j) to acc;
 //   self_pair(a, acc)                      adds the i == j terms to acc.
 // acc holds the dF fields, the aux channels, then sum_f and sum_v x y z.
+// The functors of K5 see the points' stable ids as well (forces may single
+// out a point by id): pair(a, b, i, j, dist, ovx, ovy, ovz, acc) and
+// self_pair(a, i, acc).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -145,6 +150,42 @@ struct SortingAdhesion {
   }
 
   __device__ void self_pair(const Cell&, float*) const {}
+};
+
+struct Float3Cell {
+  float x, y, z;
+};
+
+// yalla_tpu_torch/models/growth_w_wall.py::relu_force with wall_friction as
+// a device functor (ref examples/growth_w_wall.cu:40-71): a ReLU band
+// between cells, none with the wall node (stable id ``wall``), friction
+// between cells within r_max.  Both vanish on the diagonal.
+// Sums: fx fy fz sum_f sum_vx sum_vy sum_vz.
+struct WallRelu {
+  using Cell = Float3Cell;
+  static constexpr int kFields = 3;
+  static constexpr int kSums = 7;
+  float r_max;
+  int wall;
+
+  __device__ void pair(const Cell& a, const Cell& b, int i, int j,
+                       float dist, float ovx, float ovy, float ovz,
+                       float* acc) const {
+    const bool cells = i != wall && j != wall && i != j;
+    const float F = fmaxf(0.7f - dist, 0.0f) - fmaxf(dist - 0.8f, 0.0f);
+    const float safe = dist > 0.0f ? dist : 1.0f;
+    const float w = (cells && dist <= r_max) ? F / safe : 0.0f;
+    acc[0] += (a.x - b.x) * w;
+    acc[1] += (a.y - b.y) * w;
+    acc[2] += (a.z - b.z) * w;
+    const float fr = (cells && dist < r_max) ? 1.0f : 0.0f;
+    acc[3] += fr;
+    acc[4] += fr * ovx;
+    acc[5] += fr * ovy;
+    acc[6] += fr * ovz;
+  }
+
+  __device__ void self_pair(const Cell&, int, float*) const {}
 };
 
 }  // namespace yalla

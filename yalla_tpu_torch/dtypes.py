@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["make_pt", "Float3"]
+__all__ = ["make_pt", "Float3", "pt_zeros_like"]
 
 _PT_REGISTRY: dict[tuple[str, tuple[str, ...]], type] = {}
 
@@ -68,3 +68,8 @@ def make_pt(name: str, *extra_fields: str) -> type:
 
 
 Float3 = make_pt("Float3")
+
+
+def pt_zeros_like(pt):
+    """A Pt of the same type with every field zero."""
+    return type(pt)(*(torch.zeros_like(a) for a in pt))

@@ -7,16 +7,19 @@ same numbers therefore go into both packages.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
 import torch
 
 from .dtypes import Float3
-from .solvers import LatticeEngine, TileEngine
+from .links import Links
+from .solvers import GabrielEngine, GridEngine, LatticeEngine, TileEngine
 
 __all__ = ["pt_from_numpy", "pt_to_numpy", "load_settled", "params_from",
-           "bench_config", "bench_engine", "BENCH_EXTRAS_CAP"]
+           "bench_config", "bench_engine", "engine_from", "links_from",
+           "BENCH_EXTRAS_CAP"]
 
 # the benchmark's static overflow-extras list size (bench.py, E_CAP)
 BENCH_EXTRAS_CAP = 2048
@@ -87,3 +90,29 @@ def bench_engine(cfg):
         z_block=BENCH_Z_BLOCK, rebuild_every=int(cfg["rebuild_every"]),
         pallas=True, extras_cap=BENCH_EXTRAS_CAP if e_b else 0,
         extras_block_cap=max(e_b, 8))
+
+
+def engine_from(engine):
+    """The port's ``GridEngine`` / ``GabrielEngine`` with the settings of a
+    JAX engine of the same name (a frozen dataclass).  Settings the port
+    has no counterpart for (the TPU windows of JAX's windowed Gabriel
+    form) are left behind."""
+    port = {"GridEngine": GridEngine, "GabrielEngine": GabrielEngine}
+    name = type(engine).__name__
+    if name not in port:
+        raise ValueError(f"engine_from: no port of {name}")
+    keep = {f.name for f in dataclasses.fields(port[name])}
+    return port[name](**{k: v for k, v in dataclasses.asdict(engine).items()
+                         if k in keep})
+
+
+def links_from(links, device="cpu", seed=0):
+    """The port's ``Links`` holding a JAX ``Links``' table (``d_a``,
+    ``d_b``, ``d_n``, ``strength``), on ``device``.  The port's generator
+    is seeded from ``seed``: the JAX key stream does not carry across."""
+    out = Links(links.n_max, float(links.strength), seed=seed, device=device)
+    out.h_a = np.asarray(links.d_a).astype(np.int32)
+    out.h_b = np.asarray(links.d_b).astype(np.int32)
+    out.h_n = int(links.d_n)
+    out.copy_to_device()
+    return out

@@ -1,0 +1,250 @@
+"""Links between points (protrusions) and solid walls.
+
+Counterpart of ``yalla_tpu/links.py`` (ref links.cuh).  A link table is a
+fixed-capacity pair of index arrays ``(a, b)`` with its own active count;
+``a == b`` marks an inactive link (ref links.cuh:121-122).  Forces reach
+both endpoints by ``index_add_`` (the reference's ``atomicAdd``,
+links.cuh:105-110) and enter the solver through the ``GenericForce`` hook.
+On CUDA tensors ``index_add_`` fixes no summation order, so link and wall
+forces agree with the CPU to f32 rounding, not bit for bit.
+
+Randomness: ``Links`` holds a ``torch.Generator`` on its device, seeded
+from ``seed``.  ``Links.update`` draws the rewiring randoms from it and
+hands them to the rule as a ``Draws``, so a caller (a test holding the port
+against the JAX package's ``jax.random`` draws) can pass its own instead.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .dtypes import pt_zeros_like
+from .ops.grid_xla import _row_offsets, build_grid
+from .solvers import GenericForce
+
+__all__ = ["Links", "Draws", "random_cube_neighbours", "linear_force",
+           "link_forces", "wall_forces", "link_wall_forces",
+           "xy_wall_relu_force"]
+
+
+def _pad(n):
+    return max(64, -(-int(n) // 64) * 64)
+
+
+class Draws(NamedTuple):
+    """The randoms of one ``Links.update``, one per link row: a neighbour
+    cube, a uniform that picks a cell in it, and the rule's own uniform."""
+    pick_cube: torch.Tensor   # int64[n_pad] in [0, 27)
+    u: torch.Tensor           # f32[n_pad] in [0, 1)
+    noise: torch.Tensor       # f32[n_pad] in [0, 1)
+
+
+class Links:
+    """Fixed-capacity link container (ref links.cuh:24-91).  ``h_a`` /
+    ``h_b`` are the host mirror (int32 numpy), ``d_a`` / ``d_b`` the
+    int64 tensors on ``device``; ``d_n`` is the active count (an int)."""
+
+    def __init__(self, n_max, strength=1.0 / 5, seed=None, device="cpu"):
+        self.device = torch.device(device)
+        self.n_max = int(n_max)
+        self.n_pad = _pad(self.n_max)
+        self.strength = float(strength)
+        self.h_a = np.zeros(self.n_pad, np.int32)
+        self.h_b = np.zeros(self.n_pad, np.int32)
+        self.h_n = self.n_max
+        self.d_a = torch.zeros(self.n_pad, dtype=torch.int64,
+                               device=self.device)
+        self.d_b = torch.zeros_like(self.d_a)
+        self.d_n = self.n_max
+        if seed is None:
+            seed = int(np.random.SeedSequence().entropy % (2 ** 63))
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+
+    def set_d_n(self, n):
+        assert n <= self.n_max
+        self.d_n = int(n)
+
+    def get_d_n(self):
+        return self.d_n
+
+    def copy_to_device(self):
+        assert self.h_n <= self.n_max
+        self.d_a = torch.as_tensor(self.h_a.astype(np.int64),
+                                   device=self.device)
+        self.d_b = torch.as_tensor(self.h_b.astype(np.int64),
+                                   device=self.device)
+        self.d_n = int(self.h_n)
+
+    def copy_to_host(self):
+        self.h_a = self.d_a.cpu().numpy().astype(np.int32)
+        self.h_b = self.d_b.cpu().numpy().astype(np.int32)
+        self.h_n = self.d_n
+
+    def reset(self, check=None):
+        """Deactivate links for which ``check(a, b)`` is True (all by
+        default), ref links.cuh:66-76.  ``check`` may be vectorised (numpy
+        arrays in, bool array out) or a scalar predicate."""
+        self.copy_to_host()
+        if check is None:
+            self.h_a[:] = 0
+            self.h_b[:] = 0
+        else:
+            a = self.h_a[:self.n_max]
+            b = self.h_b[:self.n_max]
+            try:
+                kill = np.asarray(check(a, b), dtype=bool)
+                if kill.shape != a.shape:
+                    raise TypeError
+            except Exception:
+                kill = np.fromiter(
+                    (bool(check(int(x), int(y))) for x, y in zip(a, b)),
+                    dtype=bool, count=self.n_max)
+            a[kill] = 0
+            b[kill] = 0
+        self.copy_to_device()
+
+    @property
+    def state(self):
+        return (self.d_a, self.d_b, self.d_n, self.strength)
+
+    def draws(self):
+        """One update's randoms from the generator."""
+        g, m = self.generator, self.n_pad
+        return Draws(
+            torch.randint(0, 27, (m,), generator=g, device=self.device),
+            torch.rand(m, generator=g, device=self.device),
+            torch.rand(m, generator=g, device=self.device))
+
+    def update(self, rule, cells, draws=None):
+        """Protrusion rewiring (ref e.g. ``examples/intercalation.cu:32-56``):
+        ``rule(a, b, X, n_cells, draws) -> (a', b')`` on every link row;
+        rows past the active count keep their links.  ``draws`` defaults to
+        :meth:`draws`."""
+        if draws is None:
+            draws = self.draws()
+        live = torch.arange(self.n_pad, device=self.d_a.device) < self.d_n
+        a2, b2 = rule(self.d_a, self.d_b, cells.d_X, cells.d_n, draws)
+        self.d_a = torch.where(live, a2, self.d_a)
+        self.d_b = torch.where(live, b2, self.d_b)
+
+
+def random_cube_neighbours(X, n_cells, cube_size, grid_size, src, pick_cube,
+                           u):
+    """For each source cell, a random cell of one of its 27 neighbour cubes
+    (the grid-sampled proposals of ``examples/growth_w_wall.cu:99-136``):
+    cube ``pick_cube`` (in [0, 27)) of the source's stencil, cell
+    ``floor(u * count)`` of that cube's sorted run.  Returns (candidate
+    ids, found mask)."""
+    n_cubes = grid_size ** 3
+    tables = build_grid(X, n_cells, cube_size, grid_size)
+    offs27 = _row_offsets(grid_size, src.device).reshape(27)
+    c = torch.clamp(tables.cid[src] + offs27[pick_cube], 0, n_cubes - 1)
+    start = tables.cube_start[c]
+    cnt = tables.cube_end[c] - start + 1
+    pick = start + torch.minimum((u * cnt).to(torch.int64),
+                                 torch.clamp(cnt - 1, min=0))
+    n_pad = tables.order.shape[0]
+    return tables.order[torch.clamp(pick, 0, n_pad - 1)], cnt >= 1
+
+
+def linear_force(Xa, Xb, r, dist, strength):
+    """Unit-vector spring of constant magnitude (ref links.cuh:99-111).
+    Returns (dFa, dFb)."""
+    safe = torch.where(dist > 0, dist, 1.0)
+    fx = strength * r.x / safe
+    fy = strength * r.y / safe
+    fz = strength * r.z / safe
+    dFa = pt_zeros_like(Xa).replace(x=-fx, y=-fy, z=-fz)
+    dFb = pt_zeros_like(Xb).replace(x=fx, y=fy, z=fz)
+    return dFa, dFb
+
+
+def _link_dX(force, X, args):
+    """The link forces of ``args = (a, b, n_links, strength)`` on X."""
+    a, b, n_links, strength = args
+    live = (torch.arange(a.shape[0], device=a.device) < n_links) & (a != b)
+    Xa = type(X)(*(f[a] for f in X))
+    Xb = type(X)(*(f[b] for f in X))
+    r = Xa - Xb
+    dist = torch.sqrt(r.x * r.x + r.y * r.y + r.z * r.z)
+    dFa, dFb = force(Xa, Xb, r, dist, strength)
+
+    def add(zero, fa, fb):
+        fa = torch.where(live, torch.as_tensor(fa).expand(live.shape), 0.0)
+        fb = torch.where(live, torch.as_tensor(fb).expand(live.shape), 0.0)
+        return zero.index_add(0, a, fa).index_add(0, b, fb)
+    return type(X)(*(add(z, fa, fb)
+                     for z, fa, fb in zip(pt_zeros_like(X), dFa, dFb)))
+
+
+def link_forces(links: Links, force=linear_force, fields=None):
+    """GenericForce applying ``force`` over the link table
+    (ref links.cuh:128-140).  ``fields`` names the Pt fields it writes
+    (x, y, z for the default ``linear_force``)."""
+    if fields is None and force is linear_force:
+        fields = ("x", "y", "z")
+    return GenericForce(fn=lambda X, n, args: _link_dX(force, X, args),
+                        args=links.state, fields=fields)
+
+
+# --------------------------------------------------------------------------
+# Walls (ref links.cuh:142-228): planes tracked by a "wall node" point.
+# --------------------------------------------------------------------------
+
+def xy_wall_relu_force(X, i, wall_idx):
+    """ReLU band force on point-to-plane distance for a wall normal to z
+    (ref links.cuh:157-169).  Returns (F_z per point, interacting mask)."""
+    dist_wall = torch.abs(X.z - X.z[wall_idx])
+    interacting = (dist_wall < 1.0) & (i != wall_idx)
+    F = torch.clamp(0.8 - dist_wall, min=0) - torch.clamp(dist_wall - 0.8,
+                                                          min=0)
+    return torch.where(interacting, F, 0.0), interacting
+
+
+def _wall_dX(w_force, link_force, X, n_cells, args):
+    """Wall-node forces, plus the link forces when ``link_force`` is
+    given (then ``args = (link_args, wall_idx)``)."""
+    if link_force is not None:
+        link_args, wall_idx = args
+        dX = _link_dX(link_force, X, link_args)
+    else:
+        wall_idx = args
+        dX = pt_zeros_like(X)
+    i = torch.arange(X.x.shape[0], device=X.x.device)
+    active = i < n_cells
+    F, interacting = w_force(X, i, wall_idx)
+    F = torch.where(active, F, 0.0)
+    n_ints = (interacting & active).sum()
+    # reaction on the wall node, averaged over the interactions
+    # (ref links.cuh:166-167, 183-195); the division applies to the wall
+    # node's whole generic-force dX, as in update_wall_node
+    wall_reaction = -F.sum()
+    dX = dX.replace(z=dX.z + F)
+    scale = torch.where(n_ints > 0, 1.0 / torch.clamp(n_ints, min=1), 1.0)
+    upd = {}
+    for f in ("x", "y", "z"):
+        arr = getattr(dX, f).clone()
+        val = arr[wall_idx] + (wall_reaction if f == "z" else 0.0)
+        arr[wall_idx] = val * scale
+        upd[f] = arr
+    return dX.replace(**upd)
+
+
+def wall_forces(wall_idx, w_force=xy_wall_relu_force, fields=("x", "y", "z")):
+    """Wall node, no links (ref links.cuh:198-210)."""
+    return GenericForce(
+        fn=lambda X, n, args: _wall_dX(w_force, None, X, n, args),
+        args=int(wall_idx), fields=fields)
+
+
+def link_wall_forces(links: Links, wall_idx, l_force=linear_force,
+                     w_force=xy_wall_relu_force, fields=None):
+    """Wall node + links (ref links.cuh:213-228)."""
+    if fields is None and l_force is linear_force:
+        fields = ("x", "y", "z")
+    return GenericForce(
+        fn=lambda X, n, args: _wall_dX(w_force, l_force, X, n, args),
+        args=(links.state, int(wall_idx)), fields=fields)

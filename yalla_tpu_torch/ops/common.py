@@ -45,6 +45,10 @@ def friction_on_background(Xi, r, dist, i, j):
     return torch.zeros_like(dist)
 
 
+# the friction the device functors of csrc/forces.cuh implement
+# (ops/functors.py, ``friction``)
+friction_w_neighbour.cuda_friction = "friction_w_neighbour"
+
 # central-form declarations for the all-pairs central kernel
 # (ops/central_mxu.py): f(dist, Si, Sj) with invalid pairs -- padding and
 # the i == j diagonal -- excluded by distance poisoning

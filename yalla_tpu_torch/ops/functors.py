@@ -1,14 +1,16 @@
 """The device force functors of the pair kernels, and the wrapper helpers
-the lattice (K1) and all-pairs (K3) kernel wrappers share.
+the lattice (K1), all-pairs (K3) and Gabriel lattice (K5) kernel wrappers
+share.
 
 The JAX kernels are force-generic because they trace any jnp force; a CUDA
 kernel is compiled, so a force declares the device functor that implements
 it, ``force.cuda_functor = (name, params)``, and a kernel wrapper refuses a
 force without one on the GPU.  ``PAIR_FUNCTORS`` describes each functor of
-``csrc/forces.cuh``: the Pt fields it reads (then old_v x y z), the dF
-fields and aux channels it sums (then sum_f and sum_v x y z), the
-parameter values it takes, and the C entry point of each kernel that
-implements it.  Every functor includes ``friction_w_neighbour``.
+``csrc/forces.cuh``: the C entry point of each kernel that implements it,
+the friction it implements (the torch friction declares its name as
+``friction.cuda_friction``), the Pt fields it reads (then old_v x y z), the
+dF fields and aux channels it sums (then sum_f and sum_v x y z), and the
+parameter values it takes.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import functools
 
 import torch
 
-from .common import friction_w_neighbour, split_force_output
+from .common import split_force_output
 
 __all__ = ["PAIR_FUNCTORS", "pair_functor", "require", "dF_type",
            "param_array", "unpack_sums"]
@@ -26,6 +28,7 @@ PAIR_FUNCTORS = {
     "branching": dict(
         entries={"lattice": "yalla_lattice_pair_branching",
                  "tile": "yalla_tile_pair_branching"},
+        friction="friction_w_neighbour",
         fields=("x", "y", "z", "u", "v", "ctype", "px", "py", "pz"),
         dF=("x", "y", "z", "u", "v"),
         aux=("epi_nbs", "pg_x", "pg_y", "pg_z"),
@@ -33,16 +36,25 @@ PAIR_FUNCTORS = {
                 "m_v", "s_u")),
     "sorting_adhesion": dict(
         entries={"tile": "yalla_tile_pair_sorting"},
+        friction="friction_w_neighbour",
         fields=("x", "y", "z", "ctype"),
         dF=("x", "y", "z"),
         aux=(),
         params=("r_max", "r_min")),
+    "growth_w_wall_relu": dict(
+        entries={"gabriel": "yalla_gabriel_pair_wall_relu"},
+        friction="wall_friction",
+        fields=("x", "y", "z"),
+        dF=("x", "y", "z"),
+        aux=(),
+        params=("r_max", "wall")),
 }
 
 
 def pair_functor(pw_int, pw_friction, kernel, plain_path):
-    """``(spec, params)`` of the force's functor in ``kernel`` ("lattice"
-    or "tile"); raises if the kernel cannot run this force and friction.
+    """``(spec, params)`` of the force's functor in ``kernel`` ("lattice",
+    "tile" or "gabriel"); raises if the kernel cannot run this force and
+    friction.
     ``plain_path`` names the plain path that runs any force."""
     functor = getattr(pw_int, "cuda_functor", None)
     if functor is None or functor[0] not in PAIR_FUNCTORS:
@@ -54,9 +66,11 @@ def pair_functor(pw_int, pw_friction, kernel, plain_path):
     if kernel not in spec["entries"]:
         raise ValueError(f"{kernel} pair kernel: the CUDA functor "
                          f"{functor[0]!r} is not built into this kernel")
-    if pw_friction is not friction_w_neighbour:
-        raise ValueError(f"{kernel} pair kernel: only friction_w_neighbour "
-                         f"is implemented on the GPU")
+    if getattr(pw_friction, "cuda_friction", None) != spec["friction"]:
+        raise ValueError(f"{kernel} pair kernel: the CUDA functor "
+                         f"{functor[0]!r} implements the friction "
+                         f"{spec['friction']} only; {plain_path} runs any "
+                         f"friction")
     if functor[0] == "branching" and getattr(params, "r_max", 1.0) != 1.0:
         raise ValueError(f"{kernel} pair kernel: the branching functor "
                          f"derives mes_nbs from the friction sum, which "

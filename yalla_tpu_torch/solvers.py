@@ -7,12 +7,16 @@ other field.  PyTorch runs eagerly, so a step is a plain function and a
 run of steps a Python loop; point counts are Python ints.
 
 Ported so far: the all-pairs ``TileEngine`` (the plain brute-force oracle
-and the all-pairs kernels K3 and K4) and the ``LatticeEngine`` per-pass
-path, which ``take_steps`` routes to ``ops.lattice_xla.lattice_heun_steps``.
+and the all-pairs kernels K3 and K4), the spatial-hash ``GridEngine``, the
+``GabrielEngine`` (the gather form, and the Gabriel lattice kernel K5),
+generic forces (``GenericForce``, ``gen_forces=``), and the
+``LatticeEngine`` per-pass path, which ``take_steps`` routes to
+``ops.lattice_xla.lattice_heun_steps``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -21,11 +25,13 @@ from .dtypes import Float3, make_pt
 from .ops.common import (ERR_PREFIX, apply_derived_aux, apply_post_pair,
                          friction_on_background, friction_w_neighbour,
                          grid_dims, mask_tree)
+from .ops.grid_xla import (build_grid, gabriel_pairwise, grid_overflow,
+                           grid_pairwise)
 from .ops.pairwise_xla import tile_pairwise
 
-__all__ = ["TileEngine", "LatticeEngine", "Solution", "SimulationError",
-           "heun_step", "heun_steps", "friction_w_neighbour",
-           "friction_on_background"]
+__all__ = ["TileEngine", "GridEngine", "GabrielEngine", "LatticeEngine",
+           "GenericForce", "Solution", "SimulationError", "heun_step",
+           "heun_steps", "friction_w_neighbour", "friction_on_background"]
 
 
 class SimulationError(RuntimeError):
@@ -73,6 +79,72 @@ class TileEngine:
 
 
 @dataclass(frozen=True)
+class GridEngine:
+    """Spatial-hash O(N) with the ``dist < cube_size`` cutoff
+    (ref Grid_computer, solvers.cuh:465-502); ``ops/grid_xla.py``."""
+    grid_size: int = 50
+    row_cap: int = 32
+    i_block: int = 4096
+
+    def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size):
+        return grid_pairwise(pw_int, pw_friction, X, old_v, n, cube_size,
+                             grid_size=self.grid_size, row_cap=self.row_cap,
+                             i_block=self.i_block)
+
+
+@dataclass(frozen=True)
+class GabrielEngine:
+    """Grid + Gabriel-graph neighbourhood pruning (ref Gabriel_computer,
+    solvers.cuh:604-644).
+
+    ``lattice`` runs the Gabriel lattice pass (``ops/gabriel_pallas.py``:
+    the CUDA kernel K5 on CUDA tensors, its plain version on CPU tensors),
+    on a dense lattice of ``grid_size`` cubes with ``capacity`` slots each.
+    ``None`` resolves to it on CUDA tensors, as JAX resolves it on the
+    TPU; on the CPU, as in JAX off the TPU, to the grid path.  The CUDA
+    kernel takes any grid, so the TPU kernel's shape rules
+    (:meth:`_lattice_fits`) do not enter the routing.
+
+    The grid path is the gather form ``gabriel_pairwise`` whatever
+    ``windowed`` says: the JAX package's windowed form avoids XLA:TPU
+    gathers and is not ported (JAX's tests hold the two forms equal), so
+    its window settings have no counterpart here.  ``z_block`` is the TPU
+    kernel's block height, read only by :meth:`_lattice_fits`."""
+    grid_size: int = 50
+    row_cap: int = 32
+    gabriel_coefficient: float = 0.8
+    i_block: int = 256
+    max_candidates: int = 100
+    windowed: bool = True
+    lattice: bool | None = None
+    capacity: int = 8
+    z_block: int = 2
+
+    def _lattice_fits(self):
+        """The TPU kernel's shape rules: x-row of slots lane-aligned, y
+        extent in blocks of 8, z extent in blocks of ``z_block``."""
+        gx, gy, gz = grid_dims(self.grid_size)
+        return ((gx * self.capacity) % 128 == 0 and gy % 8 == 0
+                and gz % self.z_block == 0)
+
+    def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size):
+        use_lattice = self.lattice if self.lattice is not None \
+            else X.x.device.type == "cuda"
+        if use_lattice:
+            from .ops.gabriel_pallas import gabriel_lattice_pallas
+            return gabriel_lattice_pallas(
+                pw_int, pw_friction, X, old_v, n, cube_size,
+                grid_size=self.grid_size, capacity=self.capacity,
+                max_candidates=self.max_candidates,
+                gabriel_coefficient=self.gabriel_coefficient)
+        return gabriel_pairwise(
+            pw_int, pw_friction, X, old_v, n, cube_size,
+            grid_size=self.grid_size, row_cap=self.row_cap,
+            gabriel_coefficient=self.gabriel_coefficient,
+            i_block=self.i_block, max_candidates=self.max_candidates)
+
+
+@dataclass(frozen=True)
 class LatticeEngine:
     """Dense cube-lattice engine (see ops/lattice_xla.py).
 
@@ -100,6 +172,27 @@ class LatticeEngine:
         while gz % zb:
             zb -= 1
         object.__setattr__(self, "z_block", max(zb, 1))
+
+
+# --------------------------------------------------------------------------
+# Generic forces (the reference's Generic_forces hook, solvers.cuh:43-53)
+# --------------------------------------------------------------------------
+
+class GenericForce(NamedTuple):
+    """A generic force with explicit state: ``fn(X, n, args) -> dX`` is
+    added to the pair forces of every pass, before the friction mixing.
+    ``fields`` names the Pt fields it writes (``None``: all)."""
+    fn: Callable[..., Any]
+    args: Any = None
+    fields: tuple | None = None
+
+
+def _as_generic(gen_forces):
+    """``None``, a ``GenericForce``, or a plain ``fn(X, n) -> dX``, as a
+    ``GenericForce`` (or ``None``)."""
+    if gen_forces is None or isinstance(gen_forces, GenericForce):
+        return gen_forces
+    return GenericForce(lambda X, n, args: gen_forces(X, n))
 
 
 # --------------------------------------------------------------------------
@@ -152,7 +245,7 @@ def add_rhs(F, sum_f, sum_v):
 
 
 def _deriv(engine, pw_int, pw_friction, fix_mode, precompute,
-           X, old_v, n, cube_size, fix_point):
+           X, old_v, n, cube_size, fix_point, gen=None, gen_args=None):
     active = torch.arange(X.x.shape[0], device=X.x.device) < n
     Xa = augment(X, n, precompute)
     F, sum_f, sum_v, aux = engine.pairwise(
@@ -161,7 +254,10 @@ def _deriv(engine, pw_int, pw_friction, fix_mode, precompute,
     F, aux = apply_post_pair(pw_int, F, aux, Xa)
     aux = {k: (v.max() if k.startswith(ERR_PREFIX) else v)
            for k, v in aux.items()}
-    dX = mask_tree(add_rhs(truncate_aug(F, type(X)), sum_f, sum_v), active)
+    F = truncate_aug(F, type(X))
+    if gen is not None:
+        F = F + gen.fn(X, n, gen_args)
+    dX = mask_tree(add_rhs(F, sum_f, sum_v), active)
     fx, fy, fz = _fix_components(dX, n, active, fix_mode, fix_point)
     dX = dX.replace(x=torch.where(active, dX.x - fx, 0.0),
                     y=torch.where(active, dX.y - fy, 0.0),
@@ -171,11 +267,14 @@ def _deriv(engine, pw_int, pw_friction, fix_mode, precompute,
 
 
 def heun_step(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
-              cube_size, fix_point=0, precompute=None):
-    """One 2nd-order step: ``(X, old_v) -> (X', old_v', aux)``."""
+              cube_size, fix_point=0, precompute=None, gen=None,
+              gen_args=None):
+    """One 2nd-order step: ``(X, old_v) -> (X', old_v', aux)``.  ``gen``
+    is a ``GenericForce`` (its ``args`` ignored) called with
+    ``gen_args``."""
     def d(Xc):
         return _deriv(engine, pw_int, pw_friction, fix_mode, precompute,
-                      Xc, old_v, n, cube_size, fix_point)
+                      Xc, old_v, n, cube_size, fix_point, gen, gen_args)
     dX, aux1 = d(X)
     X1 = X + dX * dt
     dX1, aux = d(X1)
@@ -191,7 +290,8 @@ def heun_step(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
 
 
 def heun_steps(n_steps, engine, pw_int, pw_friction, fix_mode, X, old_v, n,
-               dt, cube_size, fix_point=0, precompute=None):
+               dt, cube_size, fix_point=0, precompute=None, gen=None,
+               gen_args=None):
     """``n_steps`` steps of ``heun_step``.  Failure flags are the max over
     the steps (a transient overflow mid-run already mis-integrated the
     state); every other aux channel is the last step's."""
@@ -199,7 +299,7 @@ def heun_steps(n_steps, engine, pw_int, pw_friction, fix_mode, X, old_v, n,
     for _ in range(int(n_steps)):
         X, old_v, aux = heun_step(engine, pw_int, pw_friction, fix_mode, X,
                                   old_v, n, dt, cube_size, fix_point,
-                                  precompute)
+                                  precompute, gen, gen_args)
         for k, v in aux.items():
             if k.startswith(ERR_PREFIX):
                 errs[k] = torch.maximum(errs[k], v) if k in errs else v
@@ -216,6 +316,29 @@ def _pad_size(n_max):
     return -(-n_max // 4096) * 4096
 
 
+def _engine_for(solver, n_max, grid_size, row_cap, gabriel_coefficient):
+    """The engine ``Solution(solver=...)`` names (the JAX package's
+    selection, without ``"auto"`` and the lattice switch)."""
+    if solver == "tile":
+        return TileEngine()
+    if solver == "grid":
+        if n_max > 20_000:
+            raise NotImplementedError(
+                "Solution(solver='grid') above 20k points resolves to the "
+                "dense lattice in the JAX package, which is not ported; "
+                "pass engine=LatticeEngine(...)")
+        return GridEngine(grid_size=grid_size, row_cap=row_cap)
+    if solver == "lattice":
+        return LatticeEngine(grid_size=grid_size)
+    if solver == "gabriel":
+        return GabrielEngine(grid_size=grid_size, row_cap=row_cap,
+                             gabriel_coefficient=gabriel_coefficient)
+    if solver == "auto":
+        raise NotImplementedError("Solution(solver='auto') is not ported; "
+                                  "name a solver or pass engine=")
+    raise ValueError(f"unknown solver {solver!r}")
+
+
 class Solution:
     """Host facade owning padded device state + a host mirror.
 
@@ -223,10 +346,18 @@ class Solution:
     / ``copy_to_host`` move it to and from ``device``.  A CUDA device is
     used only if it exists: asking for one without a GPU raises.  ``n_pad``
     (default: ``n_max`` rounded up as the JAX package rounds it) is the
-    row count of the device state."""
+    row count of the device state.
 
-    def __init__(self, pt_type, n_max, *, engine=None, cube_size=1.0,
-                 device="cpu", n_pad=None):
+    Without ``engine``, ``solver`` names one as in the JAX package:
+    ``"tile"``, ``"grid"`` (up to 20k points), ``"lattice"`` or
+    ``"gabriel"``, sized by ``grid_size``, ``row_cap`` and
+    ``gabriel_coefficient``.  The JAX package's ``"auto"`` and its
+    switch from ``"grid"`` to the lattice above 20k points are not
+    ported and raise."""
+
+    def __init__(self, pt_type, n_max, *, solver="tile", grid_size=50,
+                 cube_size=1.0, row_cap=32, gabriel_coefficient=0.8,
+                 engine=None, device="cpu", n_pad=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -237,7 +368,10 @@ class Solution:
         if self.n_pad < self.n_max:
             raise ValueError(f"Solution: n_pad {self.n_pad} < n_max "
                              f"{self.n_max}")
-        self.engine = engine if engine is not None else TileEngine()
+        if engine is None:
+            engine = _engine_for(solver, self.n_max, grid_size, row_cap,
+                                 gabriel_coefficient)
+        self.engine = engine
         self.cube_size = float(cube_size)
         self.h_X = pt_type(*[np.zeros(self.n_pad, np.float32)
                              for _ in pt_type._fields])
@@ -277,23 +411,29 @@ class Solution:
 
     # -- integration ----------------------------------------------------------
     def take_step(self, dt, pw_int, *, pw_friction=friction_w_neighbour,
-                  precompute=None, check_errors=True):
+                  gen_forces=None, precompute=None, check_errors=True):
         """One Heun step (ref Solution::take_step, solvers.cuh:94-105):
         ``take_steps(1, ...)``."""
         return self.take_steps(1, dt, pw_int, pw_friction=pw_friction,
-                               precompute=precompute,
+                               gen_forces=gen_forces, precompute=precompute,
                                check_errors=check_errors)
 
     def take_steps(self, n_steps, dt, pw_int, *,
-                   pw_friction=friction_w_neighbour, precompute=None,
-                   check_errors=True):
+                   pw_friction=friction_w_neighbour, gen_forces=None,
+                   precompute=None, check_errors=True):
         """``n_steps`` Heun steps.  With a LatticeEngine this runs the
-        lattice integrator (per-pass rebuild); with a TileEngine,
-        :func:`heun_steps`."""
+        lattice integrator (per-pass rebuild), which takes no generic
+        forces; with any other engine, :func:`heun_steps`.
+        ``gen_forces`` is a ``GenericForce`` or a plain ``fn(X, n)``."""
         if self.d_X is None:
             self.copy_to_device()
         e = self.engine
+        gen = _as_generic(gen_forces)
         if isinstance(e, LatticeEngine):
+            if gen is not None:
+                raise NotImplementedError(
+                    "generic forces in the lattice integrator are not "
+                    "ported; use a GabrielEngine, GridEngine or TileEngine")
             from .ops.lattice_xla import lattice_heun_steps
             self.d_X, self.d_old_v, self.aux = lattice_heun_steps(
                 int(n_steps), e.rebuild_every, pw_int, pw_friction,
@@ -305,10 +445,23 @@ class Solution:
             self.d_X, self.d_old_v, self.aux = heun_steps(
                 n_steps, e, pw_int, pw_friction, self._fix_mode, self.d_X,
                 self.d_old_v, self.d_n, dt, self.cube_size, self._fix_point,
-                precompute)
+                precompute, gen, gen.args if gen is not None else None)
         if check_errors:
             self._check_errors()
         return self.aux
+
+    def check_grid_capacity(self):
+        """True if the current state overflows the grid engine's
+        ``row_cap`` (the reference's capacity D_ASSERTs); False for the
+        other engines."""
+        if not isinstance(self.engine, (GridEngine, GabrielEngine)):
+            return False
+        if self.d_X is None:
+            self.copy_to_device()
+        gs = self.engine.grid_size
+        return bool(grid_overflow(build_grid(self.d_X, self.d_n,
+                                             self.cube_size, gs),
+                                  gs, self.engine.row_cap))
 
     def _check_errors(self):
         """Raise ``SimulationError`` if any in-loop failure flag of the
@@ -324,6 +477,6 @@ class Solution:
         if problems:
             raise SimulationError(
                 "in-loop failure detected: " + ", ".join(problems)
-                + " -- raise engine capacity (lattice capacity / "
-                "extras_cap / extras_block_cap) or check the forces for "
-                "NaN")
+                + " -- raise engine capacity (grid row_cap / "
+                "max_candidates / lattice capacity / extras_cap / "
+                "extras_block_cap) or check the forces for NaN")
