@@ -18,12 +18,16 @@ own line:
 
 1. the card's name and power limit, and the kernel build time;
 2. the pour kernel (K2) against its plain version on the main path's
-   500k build: bit-exact;
+   500k build: bit-exact; beside it, the time of ``index_put_`` placing
+   the same entries (the one PyTorch call that computes K2's function,
+   timed here and never called by the port);
 3. the lattice pair kernel (K1) against its plain version on one layout of
    that state: counters and flags exact, the other sums within
    ``|kernel - plain| <= RTOL * |plain| + ATOL * max(1, max|plain|)`` per
    channel (f32 rounding of FMA-contracted force arithmetic and a
-   different summation order);
+   different summation order); its device time per pass (lattice plus
+   extras kernels) from a short ``torch.profiler`` window, and each
+   kernel's registers and spills from the kept nvcc log;
 4. the slice on the settled 600-cell state (gs 32, C 4, 9 cells in the
    overflow extras), 2 steps on the GPU against the same steps through the
    plain versions on the CPU: every field within the reference's
@@ -41,7 +45,8 @@ own line:
 7. the tile all-pairs kernel (K3) against its plain version on the same
    state with the hand-written adhesion (friction sum exact), and on the
    600-cell branching state with its polarity channels (friction sum and
-   ``epi_nbs`` exact);
+   ``epi_nbs`` exact); its device time per pass (pair plus reduce
+   kernels) from a short ``torch.profiler`` window, registers and spills;
 8. the 5k slice, 2 steps of ``TileEngine(mxu=True)`` (central adhesion)
    and of ``TileEngine(pallas=True)`` (hand-written adhesion) on the GPU
    against the same steps through the plain versions on the CPU, every
@@ -67,11 +72,18 @@ own line:
     2 * NG times; ms/step and cell-steps/s.
 
 It then prints the kernels' JSON record and, last, the device record.
-Any failure raises and exits non-zero.  Without a CUDA device it exits
+Each kernel's ``bound_ms`` is the least time the card could take for its
+function on this run's inputs: the larger of the bytes it must move (each
+input read once, each output written once) over 3.35 TB/s and the
+operations it must do over 67 TFLOP/s (f32 outside the tensor cores),
+``bound_by`` saying which; the operations per pair are counted from
+``csrc/forces.cuh`` (``OPS_PER_PAIR``) and the pairs from this run's data.
+Any failure raises and exits non-zero, a profiler window that shows no
+device time for a kernel included.  Without a CUDA device it exits
 non-zero at once and prints no result.
 """
 import json
-import subprocess
+import re
 import sys
 import time
 from pathlib import Path
@@ -98,6 +110,19 @@ NG = 20
 # NC 32.
 GABRIEL_100K = dict(grid_size=48, capacity=16, max_candidates=32)
 GABRIEL_SMALL = dict(grid_size=16, capacity=8, max_candidates=20)
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, f32 FLOP/s outside
+# the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+# f32 operations per evaluated pair, counted from csrc/forces.cuh and
+# csrc/central_pair.cu: pair_dist (3 differences, 3 products, 2 sums and
+# the square root) plus the functor's pair term with its friction
+OPS_DIST = 9
+OPS_PER_PAIR = {"branching": OPS_DIST + 100, "sorting": OPS_DIST + 32,
+                "central": OPS_DIST + 29, "wall_relu": OPS_DIST + 16}
+# K5's midpoint test of one candidate against another (midpoint, three
+# differences, products and sums, the compare)
+OPS_MIDPOINT = 14
 
 
 def cuda_ms(fn, reps):
@@ -113,6 +138,74 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes, n_ops):
+    """(bound ms, "bytes" or "operations"): the larger of ``n_bytes`` over
+    the card's memory rate and ``n_ops`` over its f32 rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def profiled_ms(fn, names, calls=5):
+    """Device milliseconds per call of ``fn`` spent in each kernel whose
+    name contains one of ``names``, from a ``torch.profiler`` window of
+    ``calls`` calls after one warm-up call
+    (``yalla_tpu_torch/kernel_profile.py``); raises if the profiler shows
+    no device time for one of them."""
+    from yalla_tpu_torch.kernel_profile import device_window, named
+    per = named(device_window(fn, calls)[0], names)
+    missing = [k for k, v in per.items() if not v > 0]
+    if missing:
+        raise AssertionError(f"torch.profiler shows no device time for "
+                             f"{missing}")
+    return per
+
+
+def ptxas_report(names):
+    """Registers and spill bytes of each compiled kernel whose mangled name
+    contains one of ``names``, from nvcc's kept log (``-Xptxas -v``)."""
+    from yalla_tpu_torch import _build
+    log = _build.build().with_suffix(".log").read_text()
+    report, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([A-Za-z0-9_]+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        if current is None or not any(k in current for k in names):
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report.setdefault(current, {})["spills"] = (int(m[1]), int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report.setdefault(current, {})["registers"] = int(m[1])
+    for name, r in sorted(report.items()):
+        print(f"ptxas {name}: {r.get('registers')} registers, spill "
+              f"stores/loads {r.get('spills')} bytes")
+    if not all(any(k in name for name in report) for k in names):
+        raise AssertionError(f"nvcc log names no kernel among {names}")
+    return report
+
+
+def stencil_candidates(cube, gx, gy, gz):
+    """Sum over the points of the live points in the 27 cubes around each
+    point's cube (the candidates a lattice pass must test), itself
+    included.  ``cube``: int64 cube ids of the live points."""
+    import torch
+    counts = torch.bincount(cube, minlength=gx * gy * gz).reshape(
+        gz, gy, gx).to(torch.float64)
+    pad = torch.nn.functional.pad(counts, (1, 1, 1, 1, 1, 1))
+    near = sum(pad[dz:dz + gz, dy:dy + gy, dx:dx + gx]
+               for dz in range(3) for dy in range(3) for dx in range(3))
+    return float((counts * near).sum())
 
 
 def compare_sums(tag, kernel, plain, exact, atol=ATOL):
@@ -275,11 +368,23 @@ def sorting_kernel_checks(dev):
         err = compare_sums(f"{name} 5k", flatten(got, "", n),
                            flatten(want, "", n), {"sum_f"}, atol)
         ms, plain_ms = cuda_ms(k, 20), cuda_ms(pl, 5)
-        out[name] = (err, ms, plain_ms)
+        functor = "central" if name == "central_pair" else "sorting"
+        # the n points' fields and old_v read, 7 sums per row written
+        n_bytes = (len(X) + 3) * 4 * n + 7 * 4 * X.x.shape[0]
+        out[name] = (err, ms, plain_ms,
+                     *bound(n_bytes, n * (n - 1) * OPS_PER_PAIR[functor]))
         print(f"{name} on the settled 5k sorting state ({X.x.shape[0]} "
               f"rows): sum_f exact, max abs err {err:.3g} (rtol {RTOL}, "
               f"atol {atol} x max(1, max|plain|)); {ms:.4f} ms/pass vs "
-              f"plain {plain_ms:.4f} ms/pass")
+              f"plain {plain_ms:.4f} ms/pass; bound {out[name][3]:.4f} ms "
+              f"({out[name][4]})")
+        if name == "tile_pair":
+            dev_ms = profiled_ms(k, ["tile_pair_kernel",
+                                     "tile_reduce_kernel"])
+            print(f"tile_pair device time per 5k pass (torch.profiler): "
+                  f"{sum(dev_ms.values()):.4f} ms = " + " + ".join(
+                      f"{v:.4f} {k}" for k, v in dev_ms.items()))
+            ptxas_report(["tile_pair_kernel", "tile_reduce_kernel"])
 
     Xb, ovb = load_settled(SETTLED_SMALL, B.Cell, dev)
     Xb = augment(Xb, N_SMALL, B.precompute)
@@ -294,8 +399,8 @@ def sorting_kernel_checks(dev):
     print(f"tile_pair on the settled {N_SMALL}-cell branching state with "
           f"polarity channels ({Xb.x.shape[0]} rows): sum_f and epi_nbs "
           f"exact, max abs err {err:.3g}")
-    err5, ms, plain_ms = out["tile_pair"]
-    out["tile_pair"] = (max(err5, err), ms, plain_ms)
+    err5, *rest = out["tile_pair"]
+    out["tile_pair"] = (max(err5, err), *rest)
     return out
 
 
@@ -357,11 +462,12 @@ def gabriel_kernel_check(dev):
     (max abs err, ms, plain ms)."""
     import torch
     from yalla_tpu_torch.models import growth_w_wall as W
+    from yalla_tpu_torch.ops.common import cube_ids
     from yalla_tpu_torch.ops.gabriel_pallas import (gabriel_lattice_pallas,
                                                     gabriel_lattice_plain)
     from yalla_tpu_torch.ops.lattice_xla import lattice_build
     from yalla_tpu_torch.solvers import Solution
-    n_pad = Solution(W.Float3, NG_CELLS).n_pad
+    n_pad = Solution(W.Float3, NG_CELLS, device=dev).n_pad
     h, n = W.half_space_tissue(NG_CELLS, n_pad)
     X = W.Float3(*(torch.as_tensor(h[f], device=dev) for f in "xyz"))
     g = torch.Generator().manual_seed(0)
@@ -384,6 +490,23 @@ def gabriel_kernel_check(dev):
                        exact)
     kept = int(want[1][:n].sum())
     ms, plain_ms = cuda_ms(k5, 20), cuda_ms(k5_plain, 3)
+    # the work this tissue needs: every live slot of the 27 cubes tested
+    # for reach, every within-reach candidate against every other (the
+    # midpoint test), the force on every kept pair
+    cand = torch.zeros(n, dtype=torch.float64, device=dev)
+    P = torch.stack([a[:n] for a in X], 1)
+    for i0 in range(0, n, 1024):
+        d2 = ((P[i0:i0 + 1024, None, :] - P[None, :, :]) ** 2).sum(-1)
+        cand[i0:i0 + 1024] = (d2 < W.r_max ** 2).sum(1) - 1
+    del P
+    gs = GABRIEL_100K["grid_size"]
+    live_cube = cube_ids(X, n, W.r_max, gs)[:n]
+    n_ops = stencil_candidates(live_cube, gs, gs, gs) * OPS_DIST + \
+        float((cand ** 2).sum()) * OPS_MIDPOINT + \
+        kept * OPS_PER_PAIR["wall_relu"]
+    n_bytes = nbytes(*X, *ov) * n // n_pad + nbytes(*got[0], got[1],
+                                                    *got[2])
+    bound_ms, bound_by = bound(n_bytes, n_ops)
     build_ms = cuda_ms(lambda: lattice_build(
         X, ov, n, W.r_max, GABRIEL_100K["grid_size"],
         GABRIEL_100K["capacity"]), 20)
@@ -394,8 +517,8 @@ def gabriel_kernel_check(dev):
           f"ends, sum_f and flags {flags} exact, max abs err {err:.3g} (rtol "
           f"{RTOL}, atol {ATOL} x max(1, max|plain|)); {ms:.4f} ms/pass vs "
           f"plain {plain_ms:.4f} ms/pass, of which the lattice build "
-          f"{build_ms:.4f} ms")
-    return err, ms, plain_ms
+          f"{build_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    return err, ms, plain_ms, bound_ms, bound_by
 
 
 def gabriel_run(device, n_cells, engine, n_steps, seed, links_seed=None):
@@ -460,8 +583,8 @@ def growth_w_wall_slice(dev):
     from yalla_tpu_torch.solvers import GabrielEngine, Solution
     engine = GabrielEngine(lattice=True, **GABRIEL_100K)
     # the solver name reaches the same engine class
-    assert isinstance(Solution(Float3, 10, solver="gabriel").engine,
-                      GabrielEngine)
+    assert isinstance(Solution(Float3, 10, solver="gabriel",
+                               device=dev).engine, GabrielEngine)
     sol, step, _ = gabriel_run(dev, NG_CELLS, engine, 1, seed=None,
                                links_seed=15)          # one warm-up step
     wrappers = kernel_wrappers()
@@ -507,19 +630,16 @@ def main():
     from yalla_tpu_torch.interop import (bench_config, bench_engine,
                                          load_settled)
     from yalla_tpu_torch.models import branching as B
-    from yalla_tpu_torch.ops.common import friction_w_neighbour
+    from yalla_tpu_torch.ops.common import cube_ids, friction_w_neighbour
     from yalla_tpu_torch.ops.lattice_pallas import (lattice_pairwise_pallas,
                                                     lattice_pairwise_plain)
     from yalla_tpu_torch.ops.lattice_pour import pour_pallas, pour_plain
     from yalla_tpu_torch.ops.lattice_xla import lattice_build, sort_by_cube
     from yalla_tpu_torch.solvers import LatticeEngine, augment
 
+    from yalla_tpu_torch.kernel_profile import card
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(card)
+    print(card())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -550,8 +670,22 @@ def main():
     pour_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     pour_ms = cuda_ms(lambda: pour_pallas(S, n_slots), 20)
     pour_plain_ms = cuda_ms(lambda: pour_plain(S, n_slots), 20)
+    # the library call: index_put_ of the placed entries (slot-major rows,
+    # with the live flag as their last channel) into a zeroed buffer
+    placed = (S[-1] >= 0) & (S[-1] < n_slots)
+    dst = S[-1][placed].to(torch.int64)
+    rows = torch.cat([S[:-1, placed], torch.ones_like(S[:1, placed])]).T \
+        .contiguous()
+    lib_out = torch.zeros((n_slots, S.shape[0]), device=dev)
+    pour_lib_ms = cuda_ms(lambda: lib_out.index_put_((dst,), rows), 20)
+    if not torch.equal(lib_out[:, :-1].T, want[0]):
+        raise AssertionError("pour: index_put_ disagrees with plain")
+    pour_bound = bound(nbytes(S) + nbytes(*got), 0)
     print(f"K2 pour: bit-exact vs plain (out, live, n_unrouted); "
-          f"{pour_ms:.4f} ms/call vs plain {pour_plain_ms:.4f} ms/call")
+          f"{pour_ms:.4f} ms/call vs plain {pour_plain_ms:.4f} ms/call, "
+          f"index_put_ {pour_lib_ms:.4f} ms/call; bound "
+          f"{pour_bound[0]:.4f} ms ({pour_bound[1]})")
+    del lib_out, rows, dst, placed
 
     # ---- K1: lattice pair kernel against its plain version ---------------
     lay = lattice_build(X, old_v, N_CELLS, cube, gs, C, engine.extras_cap)
@@ -578,10 +712,33 @@ def main():
                      flatten(want[4], "E."), exact))
     pair_ms = cuda_ms(k1, 10)
     pair_plain_ms = cuda_ms(k1_plain, 2)
+    # the work this layout needs: the live cells' 12 channels and the
+    # occupancy read, 13 sums per slot and extra written; every live cell
+    # of the 27 cubes tested for reach, the force on every pair in reach
+    # (the friction sum counts them: cutoff and r_max are both 1)
+    n_live = int((lay.pid < lay.slot_of.shape[0]).sum()) + int(lay.n_extras)
+    live_cube = torch.cat([
+        torch.nonzero(lay.pid < lay.slot_of.shape[0]).squeeze(1) // C,
+        cube_ids(lay.E, engine.extras_cap, cube, gs)[
+            lay.epid < lay.slot_of.shape[0]]])
+    in_reach = float(want[1].sum() + want[4][1].sum())
+    candidates = stencil_candidates(live_cube, *gs)
+    pair_bound = bound(
+        n_live * 12 * 4 + n_slots + (n_slots + engine.extras_cap) * 13 * 4,
+        candidates * OPS_DIST + in_reach * OPS_PER_PAIR["branching"])
+    print(f"K1 work: {candidates / n_live:.2f} live candidates (self "
+          f"included) and {in_reach / n_live:.2f} partners in reach per "
+          f"cell, {n_live} cells")
+    pair_dev = profiled_ms(k1, ["lattice_pair_kernel", "extras_pair_kernel"])
     print(f"K1 lattice pair: {int(lay.n_extras)} live extras, counters and "
           f"flags exact, max abs err {pair_err:.3g} (rtol {RTOL}, atol "
           f"{ATOL} x max(1, max|plain|)); {pair_ms:.3f} ms/pass vs plain "
-          f"{pair_plain_ms:.3f} ms/pass")
+          f"{pair_plain_ms:.3f} ms/pass; bound {pair_bound[0]:.4f} ms "
+          f"({pair_bound[1]})")
+    print(f"K1 device time per 500k pass (torch.profiler): "
+          f"{sum(pair_dev.values()):.4f} ms = " + " + ".join(
+              f"{v:.4f} {k}" for k, v in pair_dev.items()))
+    ptxas_report(["lattice_pair_kernel", "extras_pair_kernel"])
     del got, want, lay, X, old_v
 
     # ---- the slice on a small input, against the plain path on the CPU ---
@@ -624,14 +781,18 @@ def main():
          "source": "yalla_tpu_torch/csrc/pour.cu",
          "replaces": "yalla_tpu/ops/lattice_pour.py:244",
          "launches": launches["pour"], "max_abs_err": pour_err,
-         "ms": pour_ms, "plain_ms": pour_plain_ms},
+         "ms": pour_ms, "plain_ms": pour_plain_ms,
+         "bound_ms": pour_bound[0], "bound_by": pour_bound[1],
+         "library_ms": pour_lib_ms},
         {"name": "lattice_pair", "route": "cuda",
          "source": "yalla_tpu_torch/csrc/lattice_pair.cu",
          "replaces": "yalla_tpu/ops/lattice_pallas.py:672",
          "launches": launches["lattice_pair"], "max_abs_err": pair_err,
-         "ms": pair_ms, "plain_ms": pair_plain_ms},
+         "ms": pair_ms, "plain_ms": pair_plain_ms,
+         "bound_ms": pair_bound[0], "bound_by": pair_bound[1],
+         "library_ms": None},
     ]
-    for name, src, tpu, (err, ms, plain_ms) in (
+    for name, src, tpu, (err, ms, plain_ms, bound_ms, bound_by) in (
             ("central_pair", "central_pair.cu", "central_mxu.py:268",
              sort_k["central_pair"]),
             ("tile_pair", "tile_pair.cu", "tile_pallas.py:118",
@@ -642,7 +803,9 @@ def main():
                         "source": f"yalla_tpu_torch/csrc/{src}",
                         "replaces": f"yalla_tpu/ops/{tpu}",
                         "launches": launches[name], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
+                        "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

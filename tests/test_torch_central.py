@@ -76,8 +76,8 @@ def _both(n, n_pad, ov_scale=True):
     jX = _ball(n, n_pad)
     jov = JFloat3(x=jX.x * 0.01, y=jX.y * -0.02, z=jX.z * 0.005) \
         if ov_scale else JFloat3.zeros(n_pad)
-    X = pt_from_numpy(Cell, jX)
-    ov = pt_from_numpy(Float3, jov)
+    X = pt_from_numpy(Cell, jX, device="cpu")
+    ov = pt_from_numpy(Float3, jov, device="cpu")
     return (jX, jov), (X, ov)
 
 

@@ -101,6 +101,44 @@ def test_cuda_request_raises_without_gpu():
         Solution(TB.Cell, 100, device="cuda")
 
 
+def _entry_points():
+    """Each of the port's entry points that places state on a device,
+    called without ``device``; each returns the device its state went to."""
+    from types import SimpleNamespace
+
+    from yalla_tpu_torch.interop import links_from, load_settled
+    from yalla_tpu_torch.links import Links
+    from yalla_tpu_torch.models.growth_w_wall import half_space_solution
+    from yalla_tpu_torch.solvers import TileEngine
+    jlinks = SimpleNamespace(n_max=4, strength=0.5, d_n=0,
+                             d_a=np.zeros(128, np.int32),
+                             d_b=np.zeros(128, np.int32))
+    return {
+        "Solution": lambda: Solution(TB.Cell, 10).d_old_v.x.device,
+        "Links": lambda: Links(4).d_a.device,
+        "half_space_solution":
+            lambda: half_space_solution(20, TileEngine()).d_X.x.device,
+        "pt_from_numpy": lambda: pt_from_numpy(
+            tdt.Float3, {f: np.zeros(4, np.float32) for f in "xyz"}).x.device,
+        "load_settled": lambda: load_settled(SETTLED_600, TB.Cell)[0].x.device,
+        "links_from": lambda: links_from(jlinks).d_a.device,
+    }
+
+
+@pytest.mark.parametrize("name", ["Solution", "Links", "half_space_solution",
+                                  "pt_from_numpy", "load_settled",
+                                  "links_from"])
+def test_entry_points_default_to_the_card(name):
+    """Without ``device`` every entry point goes to CUDA: on a machine with
+    a GPU its state lies there, without one it raises."""
+    call = _entry_points()[name]
+    if torch.cuda.is_available():
+        assert call().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
 def test_kernel_wrappers_refuse_other_devices_and_forces():
     S = torch.zeros((3, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -124,7 +162,8 @@ def test_pt_arithmetic_matches_jax():
     a = _f32({f: rng.normal(size=7) for f in "xyz"})
     b = _f32({f: rng.normal(size=7) for f in "xyz"})
     ja, jb = jax_pt(jdt.Float3, a), jax_pt(jdt.Float3, b)
-    ta, tb = pt_from_numpy(tdt.Float3, a), pt_from_numpy(tdt.Float3, b)
+    ta = pt_from_numpy(tdt.Float3, a, device="cpu")
+    tb = pt_from_numpy(tdt.Float3, b, device="cpu")
     for j, t in ((ja + jb, ta + tb), (ja - jb, ta - tb), (-ja, -ta),
                  (ja * 0.3, ta * 0.3), (0.3 * ja, 0.3 * ta),
                  (ja / 7.0, ta / 7.0),
@@ -144,7 +183,8 @@ def test_cube_ids_and_out_of_grid_exact(grid_size):
     n_pad, n = 512, 480
     # a quarter of the points lie outside the grid (clipped + flagged)
     pos = _f32({f: rng.uniform(-10, 10, n_pad) for f in "xyz"})
-    jX, tX = jax_pt(jdt.Float3, pos), pt_from_numpy(tdt.Float3, pos)
+    jX = jax_pt(jdt.Float3, pos)
+    tX = pt_from_numpy(tdt.Float3, pos, device="cpu")
     for cube in (1.0, 0.7):
         np.testing.assert_array_equal(
             tcommon.cube_ids(tX, n, cube, grid_size).numpy(),
@@ -181,8 +221,8 @@ def test_branching_force_matches_jax(which):
     ci, cj, ii, jj = _pair_block(2)
     jXi = j_augment(jax_pt(JB.Cell, ci), 0, j_pre3)
     jXj = j_augment(jax_pt(JB.Cell, cj), 0, j_pre3)
-    tXi = t_augment(pt_from_numpy(TB.Cell, ci), 0, t_pre3)
-    tXj = t_augment(pt_from_numpy(TB.Cell, cj), 0, t_pre3)
+    tXi = t_augment(pt_from_numpy(TB.Cell, ci, device="cpu"), 0, t_pre3)
+    tXj = t_augment(pt_from_numpy(TB.Cell, cj, device="cpu"), 0, t_pre3)
     jr, tr = jXi - jXj, tXi - tXj
     # the same distances go in, so gates and counters see one input
     dist = np.sqrt(np.asarray(jr.x * jr.x + jr.y * jr.y + jr.z * jr.z))
@@ -210,7 +250,8 @@ def test_polarity_precompute_and_post_pair_match_jax():
     n = 256
     cells = _f32(random_cells(rng, n))
     cells["theta"][:4] = [0.0, np.pi, 1e-12, np.pi / 2]   # pole guard
-    jX, tX = jax_pt(JB.Cell, cells), pt_from_numpy(TB.Cell, cells)
+    jX = jax_pt(JB.Cell, cells)
+    tX = pt_from_numpy(TB.Cell, cells, device="cpu")
     jp, tp = j_pre3(jX, n), t_pre3(tX, n)
     assert list(jp) == list(tp)
     for k in jp:
@@ -219,7 +260,7 @@ def test_polarity_precompute_and_post_pair_match_jax():
     F = _f32({f: rng.normal(size=n) for f in JB.Cell._fields})
     jF, jaux = j_post_pair(jax_pt(JB.Cell, F),
                            {k: jnp.asarray(v) for k, v in G.items()}, jX)
-    tF, taux = t_post_pair(pt_from_numpy(TB.Cell, F),
+    tF, taux = t_post_pair(pt_from_numpy(TB.Cell, F, device="cpu"),
                            {k: torch.as_tensor(v) for k, v in G.items()}, tX)
     assert jaux == {} and taux == {}
     for f in JB.Cell._fields:
@@ -232,11 +273,12 @@ def test_tile_pairwise_matches_jax():
     X, ov = settled_600()
     n = 600
     jXa = j_augment(jax_pt(JB.Cell, X), n, j_pre3)
-    tXa = t_augment(pt_from_numpy(TB.Cell, X), n, t_pre3)
+    tXa = t_augment(pt_from_numpy(TB.Cell, X, device="cpu"), n, t_pre3)
     jout = j_tile(JB.make_force(JB.Params()), jcommon.friction_w_neighbour,
                   jXa, jax_pt(jdt.Float3, ov), jnp.int32(n), j_block=128)
     tout = t_tile(TB.make_force(TB.Params()), tcommon.friction_w_neighbour,
-                  tXa, pt_from_numpy(tdt.Float3, ov), n, j_block=128)
+                  tXa, pt_from_numpy(tdt.Float3, ov, device="cpu"), n,
+                  j_block=128)
     for f in JB.Cell._fields:
         assert_close(getattr(tout[0], f), getattr(jout[0], f), f,
                      atol=1e-5)
@@ -259,6 +301,6 @@ def test_interop_carries_params_state_and_bench_config():
         (BENCH_EXTRAS_CAP, 24, 2, True)
     X, ov = settled_600()
     jX = jax_pt(JB.Cell, X)
-    back = pt_to_numpy(pt_from_numpy(TB.Cell, jX))
+    back = pt_to_numpy(pt_from_numpy(TB.Cell, jX, device="cpu"))
     for f in JB.Cell._fields:
         np.testing.assert_array_equal(back[f], X[f])

@@ -79,17 +79,92 @@ def _layout(device):
                         E=augment(lay.E, N, B.precompute))
 
 
-def test_pair_kernel_matches_plain(cuda):
-    lay = _layout(cuda)
+def _branching_cells(n, n_pad, spacing, side, seed):
+    """``n`` branching cells on a jittered cubic lattice of ``spacing``
+    (jitter +-spacing/5, so no two closer than 0.6 spacing), the ``n``
+    nearest the origin of a ``side``-point cube of sites, with random
+    polarity, morphogens and types; rows past ``n`` are zero.  Returns
+    numpy fields and a small old_v."""
+    rng = np.random.default_rng(seed)
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)
+    pos = (g - (side - 1) / 2) * spacing
+    pos = pos + rng.uniform(-spacing / 5, spacing / 5, pos.shape)
+    pos = pos[np.argsort((pos ** 2).sum(1), kind="stable")[:n]]
+    h = {f: np.zeros(n_pad, np.float32) for f in B.Cell._fields}
+    for c, f in enumerate("xyz"):
+        h[f][:n] = pos[:, c]
+    h["theta"][:n] = rng.uniform(0, np.pi, n)
+    h["phi"][:n] = rng.uniform(-np.pi, np.pi, n)
+    h["u"][:n] = rng.uniform(0, 1, n)
+    h["v"][:n] = rng.uniform(0, 1, n)
+    h["ctype"][:n] = rng.integers(0, 2, n)
+    ov = {f: (0.01 * rng.standard_normal(n_pad)).astype(np.float32)
+          for f in "xyz"}
+    return h, ov
+
+
+# K1 edge shapes: (cells, rows, lattice spacing, sites per side, grid,
+# capacity, extras_cap); n 0 is the empty lattice, "boundary" keeps only
+# cells in the outer cubes of its 8^3 grid, "ragged" fills every cube of
+# an 11^3 grid, which the 2 x 4 x 8 brick divides in no axis (with no
+# extras: the JAX kernel's extras blocks need gy % 8 == 0)
+PAIR_CASES = {
+    "settled600": None,
+    "empty": (0, 640, 0.6, 9, 32, 4, 64),
+    "boundary": (2000, 2048, 0.5, 16, 8, 8, 1024),
+    "c1": (300, 320, 0.9, 7, 16, 1, 512),
+    "c16": (3000, 3072, 0.45, 15, 16, 16, 2048),
+    "ragged": (4913, 4992, 0.6, 17, 11, 8, 0),
+}
+
+
+def _pair_case(case, device):
+    """(layout, n, grid size, capacity) of one K1 edge shape on ``device``."""
+    if PAIR_CASES[case] is None:
+        return _layout(device), N, GS, C
+    n, n_pad, spacing, side, gs, cap, e_cap = PAIR_CASES[case]
+    h, ov = _branching_cells(max(n, 1), n_pad, spacing, side, seed=3)
+    if case == "boundary":
+        # keep the cells whose cube has a coordinate 0 or gs - 1
+        idx = np.floor(np.stack([h[f] for f in "xyz"], -1)) + gs // 2
+        keep = ((idx == 0) | (idx == gs - 1)).any(-1) & \
+            (np.arange(n_pad) < n)
+        order = np.argsort(~keep, kind="stable")
+        h = {f: np.where(np.arange(n_pad) < keep.sum(), a[order], 0)
+             .astype(np.float32) for f, a in h.items()}
+        n = int(keep.sum())
+    if case == "ragged":
+        # shift the block of cells from [-4.9, 4.9] to cubes 0 .. 10
+        for f in "xyz":
+            h[f][:n] += 0.5
+    X = B.Cell(*(torch.as_tensor(h[f], device=device)
+                 for f in B.Cell._fields))
+    ovt = Float3(*(torch.as_tensor(ov[f], device=device) for f in "xyz"))
+    lay = lattice_build(X, ovt, n, 1.0, gs, cap, e_cap)
+    assert int(lay.n_dropped) == 0 and int(lay.n_oob) == 0
+    E = None if lay.E is None else augment(lay.E, n, B.precompute)
+    return (lay._replace(T=augment(lay.T, n, B.precompute), E=E), n, gs,
+            cap)
+
+
+@pytest.mark.parametrize("case", list(PAIR_CASES))
+def test_pair_kernel_matches_plain(cuda, case):
+    """K1 against its plain version on the settled 600-cell state (gs 32,
+    C 4, with extras) and on edge shapes: an empty lattice, cells only in
+    the boundary cubes, C 1 and C 16 (both with overflow extras), and a
+    grid whose bricks are ragged in every axis."""
+    lay, n, gs, cap = _pair_case(case, cuda)
     force = B.make_force(B.Params())
-    kw = dict(grid_size=GS, capacity=C, z_block=2, extras_block_cap=16)
+    kw = dict(grid_size=gs, capacity=cap, z_block=2, extras_block_cap=16)
     before = lattice_pairwise_pallas.launches
-    got = lattice_pairwise_pallas(force, friction_w_neighbour, lay, N, 1.0,
+    got = lattice_pairwise_pallas(force, friction_w_neighbour, lay, n, 1.0,
                                   **kw)
-    want = lattice_pairwise_plain(force, friction_w_neighbour, lay, N, 1.0,
+    want = lattice_pairwise_plain(force, friction_w_neighbour, lay, n, 1.0,
                                   **kw)
     assert lattice_pairwise_pallas.launches == before + 1
-    for g, w in ((got[:4], want[:4]), (got[4], want[4])):
+    assert len(got) == len(want)
+    for g, w in zip((got[:4], *got[4:]), (want[:4], *want[4:])):
         for a, b in zip(g[0], w[0]):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
         assert torch.equal(g[1], w[1])                     # sum of friction
@@ -119,7 +194,7 @@ def test_slice_on_gpu_matches_cpu(cuda):
                            extras_cap=EXTRAS, extras_block_cap=16)
     out = {}
     for dev in ("cpu", cuda):
-        X, ov = load_settled(SETTLED_600, B.Cell)
+        X, ov = load_settled(SETTLED_600, B.Cell, device="cpu")
         sol = Solution(B.Cell, N, engine=engine, device=dev)
         sol.h_X = B.Cell(*(a.numpy() for a in X))
         sol.copy_to_device()
@@ -167,24 +242,46 @@ def _sorting_ball(device, n=900, n_pad=1000):
     return X, ov, n
 
 
-def test_tile_kernel_matches_plain(cuda):
-    """K3 on the sorting ball (n_pad 1000: the kernel takes any n_pad) and
-    on the 600-cell branching state with its polarity channels (diagonal,
-    aux and non-xyz channels)."""
-    X, ov, n = _sorting_ball(cuda)
-    force = S.make_adhesion(S.Params())
+# K3 edge shapes: (functor, n, n_pad); besides the sorting ball of 900
+# cells in 1000 rows (the kernel takes any n_pad) and the settled 600-cell
+# branching state with its polarity channels (diagonal, aux and non-xyz
+# channels), every n of {1, 127, 600, 5000} in n rows and padded
+TILE_CASES = [("sorting", 900, 1000), ("branching", 600, None)] + [
+    (functor, n, n_pad) for functor in ("sorting", "branching")
+    for n in (1, 127, 600, 5000)
+    for n_pad in (n, -(-n // 128) * 128 + 128)]
+
+
+def _tile_case(functor, n, n_pad, device):
+    """(force, X, old_v, exact aux) of one K3 edge shape on ``device``."""
+    if functor == "sorting":
+        X = S.Cell(*(torch.as_tensor(a, device=device)
+                     for a in S.initial_ball(n, n_pad, seed=1).values()))
+        g = torch.Generator().manual_seed(0)
+        ov = Float3(*(0.01 * torch.randn(n_pad, generator=g).to(device)
+                      for _ in range(3)))
+        return S.make_adhesion(S.Params()), X, ov, ()
+    if n_pad is None:
+        X, ov = load_settled(SETTLED_600, B.Cell, device)
+    else:
+        h, hov = _branching_cells(n, n_pad, 0.6, 18, seed=2)
+        X = B.Cell(*(torch.as_tensor(h[f], device=device)
+                     for f in B.Cell._fields))
+        ov = Float3(*(torch.as_tensor(hov[f], device=device) for f in "xyz"))
+    return (B.make_force(B.Params()), augment(X, n, B.precompute), ov,
+            ("epi_nbs",))
+
+
+@pytest.mark.parametrize("functor,n,n_pad", TILE_CASES)
+def test_tile_kernel_matches_plain(cuda, functor, n, n_pad):
+    """K3 against its plain version: the sorting functor and the branching
+    functor with its polarity channels; sum_f (and epi_nbs) exact."""
+    force, X, ov, exact = _tile_case(functor, n, n_pad, cuda)
     before = tile_pairwise_pallas.launches
     got = tile_pairwise_pallas(force, friction_w_neighbour, X, ov, n)
     want = tile_pairwise_plain(force, friction_w_neighbour, X, ov, n)
     assert tile_pairwise_pallas.launches == before + 1
-    _assert_sums(_rows(got, n), _rows(want, n))
-
-    Xb, ovb = load_settled(SETTLED_600, B.Cell, cuda)
-    Xb = augment(Xb, N, B.precompute)
-    bforce = B.make_force(B.Params())
-    got = tile_pairwise_pallas(bforce, friction_w_neighbour, Xb, ovb, N)
-    want = tile_pairwise_plain(bforce, friction_w_neighbour, Xb, ovb, N)
-    _assert_sums(_rows(got, N), _rows(want, N), exact_aux=("epi_nbs",))
+    _assert_sums(_rows(got, n), _rows(want, n), exact_aux=exact)
 
 
 @pytest.mark.parametrize("friction", [friction_w_neighbour,

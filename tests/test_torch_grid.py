@@ -145,7 +145,7 @@ def test_gabriel_hexagon_has_6_4_3_neighbours():
     jpts = JSolution(JFloat3, 19, solver="tile")
     regular_hexagon(0.5, jpts)
     pts = Solution(Float3, 19, solver="gabriel", grid_size=5, cube_size=1.0,
-                   gabriel_coefficient=0.8, row_cap=32)
+                   gabriel_coefficient=0.8, row_cap=32, device="cpu")
     assert pts.engine == GabrielEngine(grid_size=5, row_cap=32)
     pts.h_X = Float3(*(np.array(a) for a in jpts.d_X))
     aux = pts.take_step(0.1, count_neighbours)
@@ -159,21 +159,25 @@ def test_solver_selection_matches_jax():
         kw = dict(solver=solver, grid_size=24, row_cap=40,
                   gabriel_coefficient=0.7)
         j = JSolution(JFloat3, 300, **kw).engine
-        assert Solution(Float3, 300, **kw).engine == engine_from(j)
+        assert Solution(Float3, 300, **kw,
+                        device="cpu").engine == engine_from(j)
         port = dataclasses.asdict(engine_from(j))
         assert port == {k: v for k, v in dataclasses.asdict(j).items()
                         if k in port}
     assert Solution(Float3, 300, solver="grid", grid_size=24,
-                    row_cap=40).engine == GridEngine(grid_size=24, row_cap=40)
-    assert Solution(Float3, 300, solver="tile").engine == TileEngine()
+                    row_cap=40, device="cpu").engine == \
+        GridEngine(grid_size=24, row_cap=40)
+    assert Solution(Float3, 300, solver="tile",
+                    device="cpu").engine == TileEngine()
     assert Solution(Float3, 300, solver="lattice",
-                    grid_size=32).engine == LatticeEngine(grid_size=32)
+                    grid_size=32, device="cpu").engine == \
+        LatticeEngine(grid_size=32)
     with pytest.raises(NotImplementedError, match="auto"):
-        Solution(Float3, 300, solver="auto")
+        Solution(Float3, 300, solver="auto", device="cpu")
     with pytest.raises(NotImplementedError, match="20k"):
-        Solution(Float3, 30_000, solver="grid")
+        Solution(Float3, 30_000, solver="grid", device="cpu")
     with pytest.raises(ValueError, match="unknown solver"):
-        Solution(Float3, 300, solver="mesh")
+        Solution(Float3, 300, solver="mesh", device="cpu")
     with pytest.raises(ValueError, match="no port"):
         engine_from(TileEngine())
     # the TPU kernel's shape rules, as JAX's test_gabriel_lattice_autoselect
@@ -229,14 +233,14 @@ def test_generic_forces_and_friction(solver):
     step with the COM fixed; against the background two points separate
     by 1.0, with neighbour friction by 0.75."""
     pw = no_pw_int if solver == "tile" else spring
-    pts = Solution(Float3, 2, solver=solver)
+    pts = Solution(Float3, 2, solver=solver, device="cpu")
     pts.h_X.z[:2] = [10, 0]
     pts.take_step(1.0, pw, gen_forces=_push)
     h = pts.copy_to_host()
     assert isclose(h.x[1], 0.5) and isclose(h.x[0], -0.5)
     assert isclose(h.y[1], 0.0) and isclose(h.z[1], 0.0)
 
-    pts = Solution(Float3, 2, solver=solver)
+    pts = Solution(Float3, 2, solver=solver, device="cpu")
     pts.h_X.x[:2] = [0.0, 0.5]
     for _ in range(10):
         pts.take_step(0.05, no_pw_int, pw_friction=friction_on_background,
@@ -252,7 +256,8 @@ def test_generic_forces_and_friction(solver):
 
 
 def test_lattice_integrator_refuses_generic_forces():
-    pts = Solution(Float3, 2, engine=LatticeEngine(grid_size=16))
+    pts = Solution(Float3, 2, engine=LatticeEngine(grid_size=16),
+                   device="cpu")
     with pytest.raises(NotImplementedError, match="generic forces"):
         pts.take_steps(1, 0.1, spring, gen_forces=_push)
 
@@ -263,11 +268,11 @@ def test_check_grid_capacity_matches_jax():
         j = JSolution(JFloat3, n, solver="grid", grid_size=16,
                       row_cap=row_cap)
         t = Solution(Float3, n, solver="grid", grid_size=16,
-                     row_cap=row_cap)
+                     row_cap=row_cap, device="cpu")
         for k, f in enumerate("xyz"):
             getattr(j.h_X, f)[:n] = pos[:n, k]
             getattr(t.h_X, f)[:n] = pos[:n, k]
         j.copy_to_device()
         assert t.check_grid_capacity() == j.check_grid_capacity() \
             == (row_cap == 8)
-    assert not Solution(Float3, n).check_grid_capacity()
+    assert not Solution(Float3, n, device="cpu").check_grid_capacity()

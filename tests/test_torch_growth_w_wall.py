@@ -44,7 +44,8 @@ def runs():
                                          grid_size=GS, max_candidates=NC))
     tc = Solution(Float3, N_CELLS, cube_size=W.r_max,
                   engine=GabrielEngine(lattice=True, grid_size=GS,
-                                       capacity=C, max_candidates=NC))
+                                       capacity=C, max_candidates=NC),
+                  device="cpu")
     for sol in (jc, tc):
         assert sol.n_pad == 1024
         for f in "xyz":
@@ -52,7 +53,7 @@ def runs():
         sol.h_n = n
         sol.copy_to_device()
     jl = JLinks(N_CELLS, G.protrusion_strength, seed=15)
-    tl = Links(N_CELLS, W.protrusion_strength, seed=15)
+    tl = Links(N_CELLS, W.protrusion_strength, seed=15, device="cpu")
     jl.set_d_n(n)
     tl.set_d_n(n)
     out = []

@@ -37,7 +37,8 @@ N = 600
 def _states():
     X, ov = settled_600()
     return ((jax_pt(JB.Cell, X), jax_pt(jdt.Float3, ov)),
-            (pt_from_numpy(TB.Cell, X), pt_from_numpy(tdt.Float3, ov)))
+            (pt_from_numpy(TB.Cell, X, device="cpu"),
+             pt_from_numpy(tdt.Float3, ov, device="cpu")))
 
 
 def _equal(port, ref, what):

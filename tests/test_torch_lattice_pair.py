@@ -58,9 +58,9 @@ def passes():
     ref = j_pass(JB.make_force(JB.Params()), j_friction, jlay, jnp.int32(N),
                  jnp.float32(1.0), grid_size=GS, capacity=C, z_block=ZB,
                  extras_block_cap=BLOCK_CAP)
-    tlay = TL.lattice_build(pt_from_numpy(TB.Cell, X),
-                            pt_from_numpy(tdt.Float3, ov), N, 1.0, GS, C,
-                            EXTRAS)
+    tlay = TL.lattice_build(pt_from_numpy(TB.Cell, X, device="cpu"),
+                            pt_from_numpy(tdt.Float3, ov, device="cpu"), N,
+                            1.0, GS, C, EXTRAS)
     tlay = tlay._replace(T=t_augment(tlay.T, N, TB.precompute),
                          E=t_augment(tlay.E, N, TB.precompute))
     kw = dict(grid_size=GS, capacity=C, z_block=ZB,

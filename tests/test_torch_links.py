@@ -67,8 +67,8 @@ def no_pw(Xi, r, dist, i, j):
 # ---- tests/test_links.py -------------------------------------------------
 
 def test_square_of_four():
-    pts = Solution(Float3, 4, solver="tile")
-    links = Links(4)
+    pts = Solution(Float3, 4, solver="tile", device="cpu")
+    links = Links(4, device="cpu")
     pts.h_X.x[:4] = [1, 1, -1, -1]
     pts.h_X.y[:4] = [1, -1, -1, 1]
     pts.h_X.z[:4] = 0
@@ -95,8 +95,8 @@ def custom_force(Xa, Xb, r, dist, strength):
 
 
 def test_custom_force():
-    pts = Solution(Float4, 2, solver="tile")
-    links = Links(1)
+    pts = Solution(Float4, 2, solver="tile", device="cpu")
+    links = Links(1, device="cpu")
     pts.h_X.x[:2] = [1, 1]
     pts.h_X.y[:2] = [1, -1]
     pts.h_X.z[:2] = 0
@@ -117,7 +117,7 @@ def test_custom_force():
 # ---- tests/test_walls.py -------------------------------------------------
 
 def test_wall_repels_cell():
-    pts = Solution(Float3, 2, solver="tile")
+    pts = Solution(Float3, 2, solver="tile", device="cpu")
     pts.h_X.z[0] = 0.0
     pts.h_X.z[1] = 0.3
     pts.copy_to_device()
@@ -130,7 +130,7 @@ def test_wall_repels_cell():
 
 
 def test_wall_reaction_on_node():
-    pts = Solution(Float3, 3, solver="tile")
+    pts = Solution(Float3, 3, solver="tile", device="cpu")
     pts.h_X.z[:3] = [0.0, 0.3, 0.4]
     pts.copy_to_device()
     pts.set_fixed()
@@ -142,11 +142,11 @@ def test_wall_reaction_on_node():
 
 
 def test_link_wall_combined():
-    pts = Solution(Float3, 3, solver="tile")
+    pts = Solution(Float3, 3, solver="tile", device="cpu")
     pts.h_X.x[:3] = [0.0, 0.0, 3.0]
     pts.h_X.z[:3] = [0.0, 2.0, 2.0]
     pts.copy_to_device()
-    links = Links(1, strength=0.5)
+    links = Links(1, strength=0.5, device="cpu")
     links.h_a[0], links.h_b[0] = 1, 2
     links.copy_to_device()
     pts.set_fixed(0)
@@ -158,7 +158,7 @@ def test_link_wall_combined():
 
 
 def test_links_reset_predicate():
-    links = Links(4)
+    links = Links(4, device="cpu")
     links.h_a[:4] = [1, 2, 3, 4]
     links.h_b[:4] = [5, 6, 7, 8]
     links.copy_to_device()
@@ -208,7 +208,7 @@ def test_update_protrusions_wall_with_jax_draws():
     tcells.d_X, tcells.d_n = tX, n
     jl = JLinks(n, G.protrusion_strength, seed=15)
     jl.set_d_n(n)
-    tl = Links(n, W.protrusion_strength, seed=15)
+    tl = Links(n, W.protrusion_strength, seed=15, device="cpu")
     tl.set_d_n(n)
     for _ in range(2):
         draws = next_draws(jl)
@@ -227,7 +227,7 @@ def test_links_from_jax_and_own_draws():
     jl.h_b[:3] = [7, 8, 9]
     jl.copy_to_device()
     jl.set_d_n(40)
-    tl = links_from(jl)
+    tl = links_from(jl, device="cpu")
     assert (tl.n_max, tl.n_pad, tl.d_n, tl.strength) == \
         (jl.n_max, jl.n_pad, 40, np.float32(0.3))
     np.testing.assert_array_equal(tl.d_a.numpy(), np.asarray(jl.d_a))
@@ -236,5 +236,5 @@ def test_links_from_jax_and_own_draws():
     assert d.pick_cube.shape == d.u.shape == d.noise.shape == (tl.n_pad,)
     assert 0 <= int(d.pick_cube.min()) and int(d.pick_cube.max()) < 27
     assert 0 <= float(d.u.min()) and float(d.noise.max()) < 1
-    again = Links(100, seed=7).draws()
-    assert torch.equal(again.u, Links(100, seed=7).draws().u)
+    again = Links(100, seed=7, device="cpu").draws()
+    assert torch.equal(again.u, Links(100, seed=7, device="cpu").draws().u)

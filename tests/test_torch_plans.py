@@ -1,0 +1,142 @@
+"""Launch plans of the redesigned pair kernels, on the CPU.
+
+``lattice_plan`` (K1, ``csrc/lattice_pair.cu``) cuts the cube lattice into
+bricks whose halo and sums fit the H100's shared memory; ``tile_plan``
+(K3, ``csrc/tile_pair.cu``) splits the all-pairs j range across blocks.
+Both are plain Python, so their arithmetic is held here: every cube in
+exactly one brick, every j in exactly one split, shared memory and
+scratch as the kernels lay them out.  Also: the plain lattice pass on an
+empty lattice (K1's empty edge shape).
+"""
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from yalla_tpu_torch.dtypes import Float3
+from yalla_tpu_torch.models import branching as B
+from yalla_tpu_torch.ops.common import friction_w_neighbour
+from yalla_tpu_torch.ops.lattice_pallas import (BRICKS, SMEM_BUDGET,
+                                                SMEM_MAX,
+                                                lattice_pairwise_plain,
+                                                lattice_plan,
+                                                lattice_smem_bytes)
+from yalla_tpu_torch.ops.lattice_xla import lattice_build
+from yalla_tpu_torch.ops.tile_pallas import (BLOCKS_PER_SM, TILE_J,
+                                             TILE_THREADS, tile_plan)
+from yalla_tpu_torch.solvers import augment
+
+# the lattices the port runs (500k branching; the 600-cell state; K5's
+# two lattices, which K2 builds; Solution's default grid of 50) and edge
+# shapes: C 1, C 16 at gs 32, grids no brick divides, a flat grid
+LATTICES = [(64, 8), (32, 4), (16, 8), (48, 16), (50, 8), (32, 1), (32, 16),
+            ((10, 7, 3), 8), ((11, 11, 11), 8), ((5, 5, 1), 3)]
+# the H100's streaming multiprocessors (the wrapper reads the card's count)
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("grid,capacity", LATTICES)
+def test_lattice_plan_tiles_the_grid(grid, capacity):
+    plan = lattice_plan(grid, capacity)
+    gx, gy, gz = (grid,) * 3 if isinstance(grid, int) else grid
+    bz, by, bx = plan.brick
+    assert plan.smem == lattice_smem_bytes(plan.brick, capacity)
+    assert plan.smem <= SMEM_BUDGET < SMEM_MAX
+    # two blocks per SM, 1 KB reserved each
+    assert 2 * (plan.smem + 1024) <= 233_472
+    assert bz <= gz and by <= gy and bx <= gx
+    # the kernel's block -> brick origin arithmetic covers every cube once
+    nbx, nby = -(-gx // bx), -(-gy // by)
+    seen = np.zeros((gz, gy, gx), np.int64)
+    for b in range(plan.blocks):
+        x0, y0, z0 = b % nbx * bx, b // nbx % nby * by, b // (nbx * nby) * bz
+        seen[z0:z0 + bz, y0:y0 + by, x0:x0 + bx] += 1
+    assert (seen == 1).all()
+    # the largest brick that fits the budget is taken
+    fits = [min(b[0], gz) == bz and min(b[1], gy) == by
+            and min(b[2], gx) == bx for b in BRICKS]
+    for b in BRICKS[:fits.index(True)]:
+        clipped = (min(b[0], gz), min(b[1], gy), min(b[2], gx))
+        assert lattice_smem_bytes(clipped, capacity) > SMEM_BUDGET
+
+
+def test_lattice_plan_main_path_and_refusals():
+    plan = lattice_plan(64, 8)
+    assert plan.brick == (2, 4, 8) and plan.blocks == 4096
+    assert plan.smem == 113_316
+    assert lattice_plan(48, 16).brick == (1, 2, 8)
+    # the wrapper asks once per shape
+    assert lattice_plan(64, 8) is plan
+    # one cube and its halo past 227 KB: no brick fits
+    with pytest.raises(ValueError, match="shared memory"):
+        lattice_plan(8, 200)
+    with pytest.raises(ValueError):
+        lattice_plan(8, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        lattice_plan(8, 256)
+    with pytest.raises(ValueError):
+        lattice_plan(2048, 8)            # slot ids past 2^31
+
+
+def _tile_cases():
+    for n in (0, 1, 127, 600, 5000):
+        for n_pad in sorted({n, -(-n // 128) * 128, 5120}):
+            for rows, sums in ((2, 13), (4, 7)):
+                yield n, n_pad, rows, sums
+
+
+@pytest.mark.parametrize("n,n_pad,rows,sums", list(_tile_cases()))
+def test_tile_plan_splits_j_once(n, n_pad, rows, sums):
+    plan = tile_plan(n, n_pad, rows, sums, H100_SMS)
+    assert plan.rows == rows
+    i_blocks, splits = plan.blocks
+    assert splits == plan.splits >= 1 and plan.chunk >= 1
+    # every row in exactly one block's i range
+    per_block = TILE_THREADS * rows
+    assert i_blocks * per_block >= n_pad > (i_blocks - 1) * per_block \
+        or (n_pad == 0 and i_blocks == 0)
+    # every j < n in exactly one split, and no split empty
+    ranges = [(s * plan.chunk, min(n, (s + 1) * plan.chunk))
+              for s in range(splits)]
+    covered = list(itertools.chain.from_iterable(range(*r) for r in ranges))
+    assert covered == list(range(n))
+    assert all(hi > lo for lo, hi in ranges) or (n == 0 and splits == 1)
+    assert plan.scratch == (splits, sums, n_pad)
+    # no more splits than tiles of j
+    assert splits <= max(1, -(-n // TILE_J))
+
+
+def test_tile_plan_fills_the_card_at_5k():
+    for rows, sums in ((2, 13), (4, 7)):
+        plan = tile_plan(5000, 5120, rows, sums, H100_SMS)
+        blocks = plan.blocks[0] * plan.blocks[1]
+        assert BLOCKS_PER_SM * H100_SMS <= blocks <= 8 * H100_SMS, plan
+        assert tile_plan(5000, 5120, rows, sums, H100_SMS) is plan
+    # fewer SMs, fewer splits
+    assert tile_plan(5000, 5120, 4, 7, 16).splits < \
+        tile_plan(5000, 5120, 4, 7, H100_SMS).splits
+    with pytest.raises(ValueError):
+        tile_plan(10, 5, 2, 13, H100_SMS)
+    with pytest.raises(ValueError):
+        tile_plan(10, 20, 2, 13, 0)
+
+
+def test_plain_lattice_pass_on_an_empty_lattice():
+    """K1's plain version (the kernel's oracle) on a lattice with no cell:
+    every sum zero, the extras' too."""
+    n_pad = 64
+    rng = np.random.default_rng(0)
+    X = B.Cell(*(torch.as_tensor(rng.random(n_pad, np.float32))
+                 for _ in B.Cell._fields))
+    ov = Float3(*(torch.zeros(n_pad) for _ in range(3)))
+    lay = lattice_build(X, ov, 0, 1.0, 8, 4, 16)
+    lay = lay._replace(T=augment(lay.T, 0, B.precompute),
+                       E=augment(lay.E, 0, B.precompute))
+    out = lattice_pairwise_plain(B.make_force(B.Params()),
+                                 friction_w_neighbour, lay, 0, 1.0,
+                                 grid_size=8, capacity=4, z_block=2)
+    for part in (out[:4], out[4]):
+        F, sum_f, sum_v, aux = part
+        for a in (*F, sum_f, *sum_v, *aux.values()):
+            assert not a.any()

@@ -33,10 +33,10 @@ N, STEPS = 600, 2
 
 def solution_600(engine):
     X, ov = settled_600()
-    sol = Solution(TB.Cell, N, engine=engine, cube_size=1.0)
+    sol = Solution(TB.Cell, N, engine=engine, cube_size=1.0, device="cpu")
     sol.h_X = TB.Cell(**X)
     sol.copy_to_device()
-    sol.d_old_v = pt_from_numpy(tdt.Float3, ov)
+    sol.d_old_v = pt_from_numpy(tdt.Float3, ov, device="cpu")
     return sol
 
 

@@ -95,7 +95,8 @@ def test_slice_take_steps_match_jax(name):
         JCell(**{f: jnp.asarray(h[f]) for f in JCell._fields}),
         JFloat3.zeros(n_pad), jnp.int32(n), jnp.float32(P.dt),
         jnp.float32(P.r_max), jnp.int32(0), None)
-    sol = Solution(S.Cell, n, engine=engine, cube_size=P.r_max, n_pad=n_pad)
+    sol = Solution(S.Cell, n, engine=engine, cube_size=P.r_max, n_pad=n_pad,
+                   device="cpu")
     sol.h_X = S.Cell(**h)
     aux = sol.take_steps(3, P.dt, force)
     out = sol.copy_to_host()
@@ -121,7 +122,8 @@ def test_plain_pass_matches_jax_on_settled_state(settled_5k, name):
     _, force, _, j_force = ENGINES[name]
     plain = {"tile_central_mxu": central_pairwise_plain,
              "tile_pallas": tile_pairwise_plain}[name]
-    X, ov = pt_from_numpy(S.Cell, X_np), pt_from_numpy(Float3, ov_np)
+    X = pt_from_numpy(S.Cell, X_np, device="cpu")
+    ov = pt_from_numpy(Float3, ov_np, device="cpu")
     t = plain(force, friction_w_neighbour, X, ov, n)
     j = j_tile(j_force, j_friction,
                JCell(**{f: jnp.asarray(a) for f, a in X_np.items()}),
@@ -143,9 +145,9 @@ def test_bench_engine_for_the_sorting_configuration():
         TileEngine(pallas=True)
     with open(REPO / "bench_state.json") as f:
         assert json.load(f)["sorting_5000"]["builder"] == "build_sorting_mxu"
-    X, ov = load_settled(SETTLED_5K, S.Cell)
+    X, ov = load_settled(SETTLED_5K, S.Cell, device="cpu")
     sol = Solution(S.Cell, 5000, engine=bench_engine(cfg),
-                   n_pad=cfg["n_pad"])
+                   n_pad=cfg["n_pad"], device="cpu")
     assert sol.n_pad == X.x.shape[0] == 5120
     assert sol.h_X.x.shape == (5120,) and sol.d_old_v.x.shape == (5120,)
 
@@ -153,21 +155,22 @@ def test_bench_engine_for_the_sorting_configuration():
 @pytest.mark.parametrize("n_max,n_pad", [
     (5000, None), (5000, 5120), (300, None), (300, 384), (4097, None)])
 def test_solution_n_pad_matches_jax(n_max, n_pad):
-    assert Solution(S.Cell, n_max, n_pad=n_pad).n_pad == \
+    assert Solution(S.Cell, n_max, n_pad=n_pad, device="cpu").n_pad == \
         JSolution(JCell, n_max, n_pad=n_pad).n_pad
     with pytest.raises(ValueError, match="n_pad"):
-        Solution(S.Cell, n_max, n_pad=n_max - 1)
+        Solution(S.Cell, n_max, n_pad=n_max - 1, device="cpu")
 
 
 def test_take_step_is_one_heun_step():
     n, n_pad = 100, 128
     h = S.initial_ball(n, n_pad, seed=2)
     force = S.make_adhesion(P)
-    sol = Solution(S.Cell, n, engine=TileEngine())
+    sol = Solution(S.Cell, n, engine=TileEngine(), device="cpu")
     sol.h_X = S.Cell(**h)
     aux = sol.take_step(P.dt, force)
     X, ov, aux1 = heun_step(TileEngine(), force, friction_w_neighbour, "com",
-                            pt_from_numpy(S.Cell, h), Float3.zeros(n_pad), n,
+                            pt_from_numpy(S.Cell, h, device="cpu"),
+                            Float3.zeros(n_pad), n,
                             P.dt, 1.0)
     for a, b in zip(sol.d_X, X):
         assert torch.equal(a, b)

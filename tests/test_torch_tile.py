@@ -48,7 +48,8 @@ def _force(Xi, r, dist, i, j):
 
 def _both(n_pad, seed):
     jX, jov = _state(n_pad, seed)
-    return (jX, jov), (pt_from_numpy(Cell, jX), pt_from_numpy(Float3, jov))
+    return (jX, jov), (pt_from_numpy(Cell, jX, device="cpu"),
+                       pt_from_numpy(Float3, jov, device="cpu"))
 
 
 @pytest.mark.parametrize("fn", [tile_pairwise_pallas, tile_pairwise_plain])
@@ -103,7 +104,7 @@ def test_tile_engine_routing_matches_jax_on_cpu(monkeypatch):
                             calls.append(tag) or fn(*a))
     p = S.Params()
     for n_pad in (128, 100):
-        X = pt_from_numpy(S.Cell, S.initial_ball(90, n_pad))
+        X = pt_from_numpy(S.Cell, S.initial_ball(90, n_pad), device="cpu")
         ov = Float3.zeros(n_pad)
         for engine in (TileEngine(), TileEngine(pallas=True),
                        TileEngine(mxu=True)):

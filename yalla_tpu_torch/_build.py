@@ -38,13 +38,16 @@ _F = ctypes.c_float
 SIGNATURES = {
     # S, K, n_pad, n_slots, out, live, stream
     "yalla_pour": [_P, _I, _L, _L, _P, _P, _P],
-    # chans[12], occ, echans[12], elive, eorder, estart, E_cap,
-    # gx, gy, gz, C, cube_size, params[10], out, eout, stream
+    # chans[12], occ, echans[12], ecube, eorder, estart, E_cap,
+    # gx, gy, gz, C, cube_size, bz, by, bx, smem, params[10], out, eout,
+    # stream
     "yalla_lattice_pair_branching": [_P, _P, _P, _P, _P, _P, _I,
-                                     _I, _I, _I, _I, _F, _P, _P, _P, _P],
-    # chans[kFields + 3], n, n_pad, params, out, stream
-    "yalla_tile_pair_branching": [_P, _I, _I, _P, _P, _P],
-    "yalla_tile_pair_sorting": [_P, _I, _I, _P, _P, _P],
+                                     _I, _I, _I, _I, _F, _I, _I, _I, _L,
+                                     _P, _P, _P, _P],
+    # chans[kFields + 3], n, n_pad, rows, S, chunk, params, part, out,
+    # stream
+    "yalla_tile_pair_branching": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "yalla_tile_pair_sorting": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # Ri, Cj, n, n_pad, n_fields, n_channels, arities, friction, params,
     # out, stream
     "yalla_central_pair_sorting": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _P,

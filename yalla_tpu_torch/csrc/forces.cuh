@@ -20,14 +20,20 @@
 
 namespace yalla {
 
+// |a - b|^2 rounded exactly as torch computes rx*rx + ry*ry + rz*rz: every
+// product and sum rounded on its own (no FMA contraction)
+__device__ __forceinline__ float pair_d2(float ax, float ay, float az,
+                                         float bx, float by, float bz) {
+  const float rx = ax - bx, ry = ay - by, rz = az - bz;
+  return __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)),
+                   __fmul_rn(rz, rz));
+}
+
 // |a - b| rounded exactly as torch computes sqrt(rx*rx + ry*ry + rz*rz):
-// every product and sum rounded on its own (no FMA contraction), IEEE sqrt
+// pair_d2, then IEEE sqrt
 __device__ __forceinline__ float pair_dist(float ax, float ay, float az,
                                            float bx, float by, float bz) {
-  const float rx = ax - bx, ry = ay - by, rz = az - bz;
-  const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)),
-                             __fmul_rn(rz, rz));
-  return sqrtf(d2);
+  return sqrtf(pair_d2(ax, ay, az, bx, by, bz));
 }
 
 struct BranchingCell {

@@ -9,30 +9,70 @@
 // reaction); every other pair the off-diagonal force.  Each overflow extra
 // gets the same sums over lattice partners, extras partners and its own
 // diagonal, and every lattice slot also sees the extras of its 27 cubes.
+// Empty slots and dead extras get zero sums.
 //
 // The force is a device functor shared with the tile kernel (forces.cuh).
 //
-// Design (the reference's own compute_cube shape, solvers.cuh:443-459): one
-// thread per slot, which exits at once if the slot is empty; it loops over
-// the 27 neighbour cubes x C slots, applies the cutoff, evaluates the force
-// functor and accumulates the 13 sums in registers, written once.  Extras
-// are reached through a per-cube [start, end) table over the cube-sorted
-// extras, so both sides scan only the 27 neighbour cubes' extras.  A second
-// launch, one thread per extra, computes the extras' own sums.
+// Bound: memory.  A pass writes 13 sums for every slot (109 MB at gs 64^3,
+// C 8) and reads the occupied slots' channels and the occupancy (about
+// 26 MB): about 0.04 ms on an H100.  Its arithmetic is below that line but
+// not small: in the settled 500k tissue a cell has about 126 live
+// candidates in its 27 cubes and about 19 partners in reach
+// (chip_smoke.py prints both).
 //
-// Bound: the pair arithmetic.  Each occupied slot scans 27 * C = 216
-// candidate slots; at the settled density (about 2.4 cells per unit cube)
-// about 65 of them are live and within reach, at about 60 flops each: about
-// 2e9 flops per pass at 500k cells, with the neighbour channels served from
-// L1/L2.  Shared-memory j-tiles and tuned blocking are later work.
+// What held the first version back: one thread per slot, 2.1M threads,
+// three quarters of them on empty slots; each live thread walked 27 x C
+// candidate slots serially and gathered each partner's 12 channels from
+// 12 SoA arrays.  At a quarter occupancy a 128-byte line of one channel
+// holds about 8 live slots, so the gathers hit in L1 only while L1 holds
+// the neighbourhood's lines of all 12 arrays, and from L2 they cost some
+// 290 bytes of sectors per partner.
+//
+// Design for Hopper:
+// * A block owns a brick of bz x by x bx cubes (ops/lattice_pallas.py::
+//   lattice_plan picks it: 2 x 4 x 8 at C <= 8, smaller above, clipped to
+//   the grid; a ragged brick at the grid's edge is masked).
+// * It stages its halo, (bz+2) x (by+2) x (bx+2) cubes, in shared memory:
+//   first the occupancy, every load independent; then, one warp per
+//   x-row of (bx+2) * C contiguous slots, cp.async copies of the live
+//   slots' channels, waited for once.  Each x-row's live slots form a
+//   list in slot order (a ballot and a prefix count per 32 slots) of
+//   float4 entries (x, y, z, slot id); the other 9 channels stay in slot
+//   order.  The 3 cubes of one x-row around a cell are then one
+//   contiguous run of that list.  113 KB at C 8: two blocks per SM.
+// * The halo's extras table ([start, end) of each cube's extras) is read
+//   once per block into shared memory; a block whose halo holds no extra
+//   skips them.
+// * A prefix sum over the brick's cubes lays out a work list of its live
+//   cells.  Eight lanes take each live cell and split each of its 9 runs
+//   slot by slot, so they test the same number of candidates, give or
+//   take one per run, and read neighbouring entries.  A candidate is one
+//   16-byte read and a d2 test; every candidate is listed and kept only
+//   in reach (no branch).  The eight lanes' lists are then joined and
+//   split evenly for the force, and the sums meet by shuffles in a fixed
+//   order.  Empty slots of the brick get their zeros in a coalesced pass.
+// * The extras' own sums run one warp per extra: the lanes load the 27
+//   cubes' extras runs at once, split the 27 x C lattice candidates and
+//   the extras, then reduce with warp shuffles in a fixed order.  Dead
+//   extras exit at once.
+//
+// Where it stands (H100 80GB HBM3, 700 W; yalla_tpu_torch/kernel_profile.py):
+// about 0.455 ms per 500k pass and 0.015 ms for the extras kernel, against
+// 0.97 for the first version's two kernels.  The scan is bound by
+// instruction issue, not latency: two candidates per lane per step ran
+// slower.  What is left: fewer candidate tests (about 126 per cell for 19
+// partners in reach).
 //
 // Numerics: the pair distance is computed with explicitly rounded products
 // and sums (no FMA contraction) and IEEE sqrt, in the same order as the
 // plain torch version, so the cutoff and the gates (dist < cube_size,
 // dist < r_max, dist < 1) decide exactly as it does and the counters agree
-// exactly.  The force values may contract into FMAs and use rsqrtf; they
+// exactly.  The scan's d2 <= reach2 decides as sqrtf(d2) < cube_size does
+// (reach2_of).  The force values may contract into FMAs and use rsqrtf; they
 // agree with the plain version to f32 rounding and summation order.
 #include <cuda_runtime.h>
+
+#include <cmath>
 
 #include "forces.cuh"
 
@@ -40,26 +80,53 @@ namespace {
 
 using yalla::BranchingForce;
 using yalla::BranchingParams;
+using yalla::pair_d2;
 using yalla::pair_dist;
 using Cell = BranchingForce::Cell;
 
 constexpr int kChans = 12;  // x y z u v ctype px py pz ov_x ov_y ov_z
 constexpr int kOut = 13;    // fx fy fz du dv epi_nbs pg_x pg_y pg_z
                             // sum_f sum_vx sum_vy sum_vz
+constexpr int kThreads = 256;      // lattice kernel: threads per block
+constexpr int kWarps = kThreads / 32;
+constexpr int kGroup = 8;          // lanes per live cell
+constexpr int kList = 8;           // in-reach partners a lane lists
+constexpr int kExtrasThreads = 128;
+constexpr int kMaxDevices = 64;
 static_assert(BranchingForce::kSums == kOut, "one sum per output row");
+static_assert(32 % kGroup == 0, "a cell's lanes share a warp");
 
 struct Chans {
   const float* p[kChans];
 };
 
-__device__ __forceinline__ Cell load_cell(const Chans& c, long long s) {
-  return Cell{c.p[0][s], c.p[1][s], c.p[2][s], c.p[3][s], c.p[4][s],
-              c.p[5][s], c.p[6][s], c.p[7][s], c.p[8][s]};
+__device__ __forceinline__ Cell load_cell(const Chans& c, int s) {
+  return Cell{__ldg(c.p[0] + s), __ldg(c.p[1] + s), __ldg(c.p[2] + s),
+              __ldg(c.p[3] + s), __ldg(c.p[4] + s), __ldg(c.p[5] + s),
+              __ldg(c.p[6] + s), __ldg(c.p[7] + s), __ldg(c.p[8] + s)};
 }
 
 struct Grid {
   int gx, gy, gz, C;
   float cutoff;
+  float reach2;  // the largest d2 with sqrtf(d2) < cutoff (reach2_of)
+};
+
+// IEEE sqrt is correctly rounded and monotone, so sqrtf(d2) < cutoff holds
+// exactly for d2 <= reach2_of(cutoff): the largest such float, or -1 if
+// none is.  The staged scan tests d2 against it and skips the square root;
+// its decisions are sqrtf's.
+float reach2_of(float cutoff) {
+  if (!(cutoff > 0.0f)) return -1.0f;
+  float t = cutoff * cutoff;
+  while (t > 0.0f && !(std::sqrt(t) < cutoff)) t = std::nextafter(t, 0.0f);
+  while (std::sqrt(std::nextafter(t, INFINITY)) < cutoff)
+    t = std::nextafter(t, INFINITY);
+  return t;
+}
+
+struct Brick {
+  int bz, by, bx;  // cubes per block
 };
 
 struct Extras {
@@ -70,112 +137,388 @@ struct Extras {
   int cap;
 };
 
-// Sums of partner ``j`` (lattice slot or extra) into ``acc`` for point ``a``
-template <class Force>
-__device__ __forceinline__ void visit(const Force& f, const Cell& a,
-                                      const Chans& ch, long long j,
-                                      float cutoff, float* acc) {
-  const float dist = pair_dist(a.x, a.y, a.z, ch.p[0][j], ch.p[1][j],
-                               ch.p[2][j]);
-  if (!(dist < cutoff)) return;
-  f.pair(a, load_cell(ch, j), dist, ch.p[9][j], ch.p[10][j], ch.p[11][j],
-         acc);
+// Shared-memory bytes of a block (ops/lattice_pallas.py::lattice_plan
+// computes the same sum), with H the halo's cubes, R = hy * hz its x-rows
+// of hx cubes, B the brick's cubes and HC = H * C the halo's slots:
+//   rl     float4 [HC]              each x-row's live slots in slot order,
+//                                   row r from r * hx * C: x y z and the
+//                                   slot's id e, slot (hc, c) being
+//                                   e = hc * C + c
+//   ch     float  [kChans - 3][HC]  the live slots' other channels, at e
+//   cs     int    [R][hx + 1]       live slots of each row before each of
+//                                   its cubes, and the row's total
+//   es/ee  int    [2 * H]           extras run of each halo cube
+//   off    int    [B + 1]           work-list offset of each own cube
+//   items  int    [B * C]           work list: each own live cell's place
+//                                   in rl (16 bits) and its cube's halo
+//                                   x, y, z (5, 5 and 6 bits)
+//   plist  ushort [kList][kThreads] each lane's partners in reach (places
+//                                   in rl)
+//   glist  ushort [kThreads][kList] each cell's partners, its lanes' lists
+//                                   joined
+// While the halo is staged, plist and glist hold its occupancy, a byte per
+// slot (HC <= smem / 52 < 4 * kList * kThreads bytes).
+long long smem_bytes(const Brick& b, int C) {
+  const long long hx = b.bx + 2, R = (long long)(b.by + 2) * (b.bz + 2);
+  const long long H = hx * R;
+  const long long B = (long long)b.bz * b.by * b.bx;
+  const long long HC = H * C;
+  return 16 * HC + 4LL * (kChans - 3) * HC + 4 * R * (hx + 1) + 8 * H +
+         4 * (B + 1) + 4 * B * C + 4LL * kList * kThreads;
 }
 
-// Walk the 27-cube stencil of cube (cx, cy, cz): lattice partners (except
-// slot ``self_slot``) and extras partners (except extra ``self_extra``,
-// whose diagonal is the full force).
+// Sums of partner ``j`` (an extra, from device memory) into ``acc`` for
+// point ``a``
 template <class Force>
-__device__ void stencil(const Force& f, const Cell& a, int cx, int cy, int cz,
-                        const Grid& g, const Chans& L,
-                        const unsigned char* __restrict__ occ,
-                        const Extras& E, long long self_slot, int self_extra,
-                        float* acc) {
-  for (int dz = -1; dz <= 1; ++dz) {
-    const int z = cz + dz;
-    if (z < 0 || z >= g.gz) continue;
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int y = cy + dy;
-      if (y < 0 || y >= g.gy) continue;
-      for (int dx = -1; dx <= 1; ++dx) {
-        const int x = cx + dx;
-        if (x < 0 || x >= g.gx) continue;
-        const long long cube = ((long long)z * g.gy + y) * g.gx + x;
-        for (int c = 0; c < g.C; ++c) {
-          const long long j = cube * g.C + c;
-          if (j != self_slot && occ[j]) visit(f, a, L, j, g.cutoff, acc);
-        }
-        if (E.cap == 0) continue;
-        for (int k = E.start[cube]; k < E.start[cube + 1]; ++k) {
-          const int e = E.order[k];
-          if (e == self_extra)
-            f.self_pair(a, acc);
-          else
-            visit(f, a, E.ch, e, g.cutoff, acc);
+__device__ __forceinline__ void visit(const Force& f, const Cell& a,
+                                      const Chans& ch, int j, float cutoff,
+                                      float* acc) {
+  const float dist = pair_dist(a.x, a.y, a.z, __ldg(ch.p[0] + j),
+                               __ldg(ch.p[1] + j), __ldg(ch.p[2] + j));
+  if (!(dist < cutoff)) return;
+  f.pair(a, load_cell(ch, j), dist, __ldg(ch.p[9] + j), __ldg(ch.p[10] + j),
+         __ldg(ch.p[11] + j), acc);
+}
+
+// 4-byte asynchronous copy from device memory to shared memory
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa),
+               "l"(gmem)
+               : "memory");
+}
+
+// The staged cell at place ``i`` of rl; its slot id in ``e``
+__device__ __forceinline__ Cell staged_cell(const float4* rl, const float* ch,
+                                            int HC, int i, int& e) {
+  const float4 p = rl[i];
+  e = __float_as_int(p.w);
+  return Cell{p.x,            p.y,            p.z,
+              ch[e],          ch[HC + e],     ch[2 * HC + e],
+              ch[3 * HC + e], ch[4 * HC + e], ch[5 * HC + e]};
+}
+
+// The force on ``a`` (at place ``i_me`` of rl) from the staged partner at
+// place ``i`` in reach, unless that is ``a`` itself
+template <class Force>
+__device__ __forceinline__ void staged_pair(const Force& f, const Cell& a,
+                                            const float4* rl,
+                                            const float* ch, int HC,
+                                            int i_me, int i, float* acc) {
+  if (i == i_me) return;
+  int e;
+  const Cell b = staged_cell(rl, ch, HC, i, e);
+  const float dist = pair_dist(a.x, a.y, a.z, b.x, b.y, b.z);
+  f.pair(a, b, dist, ch[6 * HC + e], ch[7 * HC + e], ch[8 * HC + e], acc);
+}
+
+template <class Force>
+__global__ void __launch_bounds__(kThreads, 2)
+lattice_pair_kernel(const Force f, const Grid g, const Brick br,
+                    const Chans L, const unsigned char* __restrict__ occ,
+                    const Extras E, float* __restrict__ out) {
+  extern __shared__ float4 smem[];
+  const int C = g.C;
+  const int hx = br.bx + 2, hy = br.by + 2, hz = br.bz + 2;
+  const int H = hx * hy * hz, HC = H * C, R = hy * hz, RL = hx * C;
+  const int B = br.bx * br.by * br.bz;
+  float4* rl = smem;
+  float* ch = (float*)(rl + HC);
+  int* cs = (int*)(ch + (kChans - 3) * HC);
+  int* es = cs + R * (hx + 1);
+  int* ee = es + H;
+  int* off = ee + H;
+  int* items = off + B + 1;
+  unsigned short* plist = (unsigned short*)(items + B * C) + threadIdx.x;
+  const int u = threadIdx.x % kGroup;
+  unsigned short* glist = plist - threadIdx.x + kList * kThreads +
+                          (threadIdx.x - u) * kList;
+  const long long n_slots = (long long)g.gx * g.gy * g.gz * C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+
+  const int nbx = (g.gx + br.bx - 1) / br.bx;
+  const int nby = (g.gy + br.by - 1) / br.by;
+  const int x0 = (blockIdx.x % nbx) * br.bx;
+  const int y0 = (blockIdx.x / nbx % nby) * br.by;
+  const int z0 = (blockIdx.x / (nbx * nby)) * br.bz;
+
+  // 1. stage the halo.  First its occupancy, into the partner lists' room
+  //    (unused until step 3), all loads independent
+  unsigned char* occ_s = (unsigned char*)(plist - threadIdx.x);
+  for (int i = threadIdx.x; i < HC; i += kThreads) {
+    const int r = i / RL, xs = (x0 - 1) * C + i - r * RL;
+    const int y = y0 + r % hy - 1, z = z0 + r / hy - 1;
+    occ_s[i] = y >= 0 && y < g.gy && z >= 0 && z < g.gz && xs >= 0 &&
+                       xs < g.gx * C
+                   ? occ[(z * g.gy + y) * g.gx * C + xs]
+                   : 0;
+  }
+  __syncthreads();
+  //    Then one warp per x-row of RL contiguous slots: asynchronous copies
+  //    of its live slots' channels, its list of live slots, and where each
+  //    of its cubes starts in that list; then the extras runs
+  for (int r = warp; r < R; r += kWarps) {
+    const int y = y0 + r % hy - 1, z = z0 + r / hy - 1;
+    const int base = ((z * g.gy + y) * g.gx + x0 - 1) * C;
+    int count = 0;
+    for (int q0 = 0; q0 < RL; q0 += 32) {
+      const int q = q0 + lane, e = r * RL + q;
+      const bool live = q < RL && occ_s[e];
+      const unsigned m = __ballot_sync(0xffffffffu, live);
+      const int rank = count + __popc(m & below);
+      if (live) {
+        const int s = base + q;
+        float* p = (float*)(rl + r * RL + rank);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) cp_async4(p + k, L.p[k] + s);
+        p[3] = __int_as_float(e);
+#pragma unroll
+        for (int k = 3; k < kChans; ++k)
+          cp_async4(ch + (k - 3) * HC + e, L.p[k] + s);
+      }
+      if (q < RL && q % C == 0) cs[r * (hx + 1) + q / C] = rank;
+      count += __popc(m);
+    }
+    if (lane == 0) cs[r * (hx + 1) + hx] = count;
+  }
+  int extras_here = 0;
+  for (int hc = threadIdx.x; hc < H; hc += kThreads) {
+    const int x = x0 + hc % hx - 1, y = y0 + hc / hx % hy - 1,
+              z = z0 + hc / (hx * hy) - 1;
+    int lo = 0, hi = 0;
+    if (E.cap > 0 && x >= 0 && x < g.gx && y >= 0 && y < g.gy && z >= 0 &&
+        z < g.gz) {
+      const int cube = (z * g.gy + y) * g.gx + x;
+      lo = E.start[cube];
+      hi = E.start[cube + 1];
+    }
+    es[hc] = lo;
+    ee[hc] = hi;
+    extras_here |= hi > lo;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  const bool halo_extras = __syncthreads_or(extras_here);
+
+  // 2. the work list: an exclusive prefix sum of the own cubes' live
+  //    counts (one warp), then each own cube's places in rl
+  auto own_cs = [&](int o) {  // own cube o's entry in cs
+    const int ox = o % br.bx, oy = o / br.bx % br.by,
+              oz = o / (br.bx * br.by);
+    return ((oz + 1) * hy + oy + 1) * (hx + 1) + ox + 1;
+  };
+  if (threadIdx.x < 32) {
+    const int per = (B + 31) / 32;
+    const int o0 = min(lane * per, B), o1 = min(o0 + per, B);
+    int local = 0;
+    for (int o = o0; o < o1; ++o) local += cs[own_cs(o) + 1] - cs[own_cs(o)];
+    int incl = local;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    int run = incl - local;
+    for (int o = o0; o < o1; ++o) {
+      off[o] = run;
+      run += cs[own_cs(o) + 1] - cs[own_cs(o)];
+    }
+    if (lane == 31) off[B] = incl;
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < B; o += kThreads) {
+    const int first = own_cs(o) / (hx + 1) * RL + cs[own_cs(o)];
+    const int where = (o % br.bx + 1) << 16 | (o / br.bx % br.by + 1) << 21 |
+                      (o / (br.bx * br.by) + 1) << 26;
+    for (int k = 0; k < off[o + 1] - off[o]; ++k)
+      items[off[o] + k] = first + k | where;
+  }
+  __syncthreads();
+
+  // 3. each live cell's sums.  Its kGroup lanes split each of the 9 rows
+  //    of 3 cubes around it, slot by slot, and list the partners in
+  //    reach (the extras of its 27 cubes are visited in device memory);
+  //    then the lanes' lists are joined and split evenly for the force
+  const int W = off[B];
+  for (int w0 = 0; w0 < W; w0 += kThreads / kGroup) {
+    const int w = w0 + threadIdx.x / kGroup;
+    float acc[kOut];
+#pragma unroll
+    for (int m = 0; m < kOut; ++m) acc[m] = 0.0f;
+    int i_me = -1, e_me = 0, nl = 0, xh = 0, yh = 0, zh = 0;
+    Cell a{};
+    if (w < W) {
+      const int item = items[w];
+      i_me = item & 0xffff;
+      xh = item >> 16 & 31;
+      yh = item >> 21 & 31;
+      zh = item >> 26;
+      a = staged_cell(rl, ch, HC, i_me, e_me);
+      if (u == 0) f.self_pair(a, acc);
+      const int r_me = zh * hy + yh, hc = r_me * hx + xh;
+      for (int k = 0; k < 9; ++k) {
+        const int r = r_me + (k / 3 - 1) * hy + k % 3 - 1;
+        const int* c = cs + r * (hx + 1) + xh;
+        const int hi = r * RL + c[2];
+        for (int idx = r * RL + c[-1] + u; idx < hi; idx += kGroup) {
+          // listed always, kept if in reach (itself included: it is
+          // skipped in the force, one test per partner, not per candidate)
+          const float4 b = rl[idx];
+          plist[nl * kThreads] = (unsigned short)idx;
+          nl += pair_d2(a.x, a.y, a.z, b.x, b.y, b.z) <= g.reach2;
+          if (nl == kList) {
+            for (int t = 0; t < kList; ++t)
+              staged_pair(f, a, rl, ch, HC, i_me, plist[t * kThreads], acc);
+            nl = 0;
+          }
         }
       }
+      if (halo_extras) {
+        for (int nb = u; nb < 27; nb += kGroup) {
+          const int nh = hc + (nb / 9 - 1) * hy * hx +
+                         (nb / 3 % 3 - 1) * hx + nb % 3 - 1;
+          for (int k2 = es[nh]; k2 < ee[nh]; ++k2)
+            visit(f, a, E.ch, E.order[k2], g.cutoff, acc);
+        }
+      }
+    }
+    int incl = nl;
+#pragma unroll
+    for (int d = 1; d < kGroup; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d, kGroup);
+      if (u >= d) incl += v;
+    }
+    const int n_partners = __shfl_sync(0xffffffffu, incl, kGroup - 1, kGroup);
+    for (int t = 0; t < nl; ++t) glist[incl - nl + t] = plist[t * kThreads];
+    __syncwarp();
+    for (int p = u; p < n_partners; p += kGroup)
+      staged_pair(f, a, rl, ch, HC, i_me, glist[p], acc);
+    __syncwarp();  // the joined list is read before the next cell's
+#pragma unroll
+    for (int m = 0; m < kOut; ++m)
+#pragma unroll
+      for (int d = 1; d < kGroup; d <<= 1)
+        acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], d);
+    if (w < W) {  // lane u writes sums u and u + kGroup
+      const int c = e_me - ((zh * hy + yh) * hx + xh) * C;
+      const long long s = ((long long)((z0 + zh - 1) * g.gy + y0 + yh - 1) *
+                               g.gx + x0 + xh - 1) * C + c;
+#pragma unroll
+      for (int m = 0; m < kOut; ++m)
+        if (m % kGroup == u) out[m * n_slots + s] = acc[m];
+    }
+  }
+
+  // 4. zeros for the brick's empty slots, one warp per brick x-row of
+  //    bx * C contiguous slots
+  const int run = min(br.bx, g.gx - x0) * C;
+  for (int r = warp; r < br.bz * br.by; r += kWarps) {
+    const int y = y0 + r % br.by, z = z0 + r / br.by;
+    if (y >= g.gy || z >= g.gz) continue;
+    const long long s0 = ((long long)(z * g.gy + y) * g.gx + x0) * C;
+    for (int q = lane; q < run; q += 32) {
+      if (occ[s0 + q]) continue;
+#pragma unroll
+      for (int m = 0; m < kOut; ++m) out[m * n_slots + s0 + q] = 0.0f;
     }
   }
 }
 
 template <class Force>
-__global__ void __launch_bounds__(128)
-lattice_pair_kernel(const Force f, const Grid g, const Chans L,
-                    const unsigned char* __restrict__ occ, const Extras E,
-                    float* __restrict__ out) {
-  const long long n_slots = (long long)g.gx * g.gy * g.gz * g.C;
-  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_slots) return;
-  float acc[kOut];
-#pragma unroll
-  for (int m = 0; m < kOut; ++m) acc[m] = 0.0f;
-  if (occ[s]) {
-    const Cell a = load_cell(L, s);
-    f.self_pair(a, acc);
-    const long long cube = s / g.C;
-    const int cx = (int)(cube % g.gx);
-    const int cy = (int)((cube / g.gx) % g.gy);
-    const int cz = (int)(cube / ((long long)g.gx * g.gy));
-    stencil(f, a, cx, cy, cz, g, L, occ, E, s, -1, acc);
-  }
-#pragma unroll
-  for (int m = 0; m < kOut; ++m) out[m * n_slots + s] = acc[m];
-}
-
-template <class Force>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kExtrasThreads)
 extras_pair_kernel(const Force f, const Grid g, const Chans L,
                    const unsigned char* __restrict__ occ, const Extras E,
                    float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int e = (blockIdx.x * kExtrasThreads + threadIdx.x) >> 5;
   if (e >= E.cap) return;
-  const long long n_cubes = (long long)g.gx * g.gy * g.gz;
+  const int n_cubes = g.gx * g.gy * g.gz;
+  const int cube = E.cube[e];
+  if (cube >= n_cubes) {
+    if (lane < kOut) out[(long long)lane * E.cap + e] = 0.0f;
+    return;
+  }
+  const Cell a = load_cell(E.ch, e);
   float acc[kOut];
 #pragma unroll
   for (int m = 0; m < kOut; ++m) acc[m] = 0.0f;
-  const long long cube = E.cube[e];
-  if (cube < n_cubes) {
-    const Cell a = load_cell(E.ch, e);
-    const int cx = (int)(cube % g.gx);
-    const int cy = (int)((cube / g.gx) % g.gy);
-    const int cz = (int)(cube / ((long long)g.gx * g.gy));
-    stencil(f, a, cx, cy, cz, g, L, occ, E, -1, e, acc);
+  const int cx = cube % g.gx, cy = cube / g.gx % g.gy,
+            cz = cube / (g.gx * g.gy);
+  // lane nb < 27: neighbour cube nb (-1 outside the grid) and its run of
+  // extras, loaded at once rather than one cube after another
+  int nc = -1, lo = 0, hi = 0;
+  if (lane < 27) {
+    const int x = cx + lane % 3 - 1, y = cy + lane / 3 % 3 - 1,
+              z = cz + lane / 9 - 1;
+    if (x >= 0 && x < g.gx && y >= 0 && y < g.gy && z >= 0 && z < g.gz) {
+      nc = (z * g.gy + y) * g.gx + x;
+      lo = E.start[nc];
+      hi = E.start[nc + 1];
+    }
+  }
+  for (int t0 = 0; t0 < 27 * g.C; t0 += 32) {
+    const int t = t0 + lane, nb = min(t / g.C, 26);
+    const int c3 = __shfl_sync(0xffffffffu, nc, nb);
+    if (t < 27 * g.C && c3 >= 0) {
+      const int j = c3 * g.C + t - nb * g.C;
+      if (occ[j]) visit(f, a, L, j, g.cutoff, acc);
+    }
+  }
+  for (int nb = 0; nb < 27; ++nb) {
+    const int k0 = __shfl_sync(0xffffffffu, lo, nb),
+              k1 = __shfl_sync(0xffffffffu, hi, nb);
+    for (int k = k0 + lane; k < k1; k += 32) {
+      const int e2 = E.order[k];
+      if (e2 == e)
+        f.self_pair(a, acc);
+      else
+        visit(f, a, E.ch, e2, g.cutoff, acc);
+    }
   }
 #pragma unroll
-  for (int m = 0; m < kOut; ++m) out[(long long)m * E.cap + e] = acc[m];
+  for (int m = 0; m < kOut; ++m) {
+    float v = acc[m];
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+    acc[m] = v;
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int m = 0; m < kOut; ++m) out[(long long)m * E.cap + e] = acc[m];
+  }
 }
 
 template <class Force>
-int launch(const Force& f, const Grid& g, const Chans& L,
-           const unsigned char* occ, const Extras& E, float* out, float* eout,
-           cudaStream_t stream) {
-  const int threads = 128;
+int launch(const Force& f, const Grid& g, const Brick& br, long long smem,
+           const Chans& L, const unsigned char* occ, const Extras& E,
+           float* out, float* eout, cudaStream_t stream) {
   const long long n_slots = (long long)g.gx * g.gy * g.gz * g.C;
-  lattice_pair_kernel<<<(unsigned)((n_slots + threads - 1) / threads),
-                        threads, 0, stream>>>(f, g, L, occ, E, out);
+  // places in rl are 16-bit, a cube's halo coordinates 5 bits
+  if (g.gx < 1 || g.gy < 1 || g.gz < 1 || g.C < 1 || br.bx < 1 ||
+      br.by < 1 || br.bz < 1 || n_slots >= (1LL << 31) ||
+      (long long)(br.bx + 2) * (br.by + 2) * (br.bz + 2) * g.C > 65535 ||
+      br.bx > 30 || br.by > 30 || br.bz > 30 ||
+      smem < smem_bytes(br, g.C) || smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  // above the default 48 KB a kernel takes dynamic shared memory only by
+  // opting in; once per device, for the largest size asked so far
+  static long long opted[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || smem > opted[dev]) {
+    err = cudaFuncSetAttribute(lattice_pair_kernel<Force>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) opted[dev] = smem;
+  }
+  const int blocks = ((g.gx + br.bx - 1) / br.bx) *
+                     ((g.gy + br.by - 1) / br.by) *
+                     ((g.gz + br.bz - 1) / br.bz);
+  lattice_pair_kernel<<<blocks, kThreads, (size_t)smem, stream>>>(
+      f, g, br, L, occ, E, out);
   if (E.cap > 0)
-    extras_pair_kernel<<<(E.cap + threads - 1) / threads, threads, 0,
-                         stream>>>(f, g, L, occ, E, eout);
+    extras_pair_kernel<<<(E.cap * 32 + kExtrasThreads - 1) / kExtrasThreads,
+                         kExtrasThreads, 0, stream>>>(f, g, L, occ, E, eout);
   return (int)cudaGetLastError();
 }
 
@@ -189,18 +532,21 @@ Chans chans_of(const void* const* ptrs) {
 }  // namespace
 
 // chans / echans: host arrays of kChans device pointers (lattice slots and
-// extras); params: host array of the 10 BranchingParams values.
+// extras); bz, by, bx, smem: the brick and shared-memory bytes of
+// ops/lattice_pallas.py::lattice_plan; params: host array of the 10
+// BranchingParams values.
 extern "C" int yalla_lattice_pair_branching(
     const void* const* chans, const unsigned char* occ,
     const void* const* echans, const int* ecube, const int* eorder,
     const int* estart, int E_cap, int gx, int gy, int gz, int C,
-    float cube_size, const float* params, float* out, float* eout,
-    cudaStream_t stream) {
+    float cube_size, int bz, int by, int bx, long long smem,
+    const float* params, float* out, float* eout, cudaStream_t stream) {
   BranchingForce f;
   f.p = BranchingParams{params[0], params[1], params[2], params[3],
                         params[4], params[5], params[6], params[7],
                         params[8], params[9]};
-  const Grid g{gx, gy, gz, C, cube_size};
+  const Grid g{gx, gy, gz, C, cube_size, reach2_of(cube_size)};
+  const Brick br{bz, by, bx};
   const Extras E{chans_of(echans), ecube, eorder, estart, E_cap};
-  return launch(f, g, chans_of(chans), occ, E, out, eout, stream);
+  return launch(f, g, br, smem, chans_of(chans), occ, E, out, eout, stream);
 }

@@ -8,27 +8,36 @@
 // the functor's self_pair (models put reaction terms there); inactive j
 // (j >= n) are masked; rows i >= n are computed but are don't-care.
 //
-// Design (the reference's compute_tile, solvers.cuh:282-339): one thread
-// per i, 128 to a block.  The block stages j in tiles of 128 points (every
-// channel and old_v) in shared memory with coalesced loads; every thread
-// then reads the same j from the tile (a broadcast, no bank conflicts),
-// evaluates the functor and accumulates its sums in registers, written
-// once, in the rows of tile_pallas.py: dF fields, aux, sum_f, sum_v xyz
-// (the wrapper names them from the functor's entry in ops/functors.py).
+// Bound: the pair arithmetic.  At the 5k sorting configuration (n 5000,
+// n_pad 5120) a pass is 25M pairs at about 30 operations each, two of them
+// on the MUFU unit (sqrtf, rsqrtf): some 15-20 us at the card's f32 rate.
+// The first version ran one thread per i in 40 blocks of 128 threads, so
+// 92 of the 132 SMs idled and each busy SM held four warps running 5000
+// dependent iterations.
 //
-// Bound: the pair arithmetic, issued by too few threads.  At the 5k sorting
-// configuration (n_pad 5120) the pass is 26M pairs at about 25 operations
-// each, which the card's 132 SMs could issue in some 20 us; but 5120
-// threads make 40 blocks, so 92 SMs idle and each busy SM holds four warps,
-// each running 5000 dependent iterations with little to hide their
-// latency.  Splitting j across blocks (a second reduction pass, or atomics)
-// is later work.
+// Design for Hopper:
+// * j is split across blocks.  The grid is (ceil(n_pad / (128 R)), S):
+//   block (bx, s) takes R i-points per thread, held in registers (R is a
+//   template parameter per functor: 4 for the 7-sum sorting functor, 2 for
+//   the 13-sum branching functor with its 9 fields), and the j range
+//   [s * chunk, min(n, (s + 1) * chunk)).  ops/tile_pallas.py::tile_plan
+//   picks S so that the blocks fill the SMs about four times over.
+// * The j range streams through two shared-memory tiles of kTileJ points
+//   (every channel and old_v), filled by cp.async while the other tile is
+//   consumed.  Every read of a j value from shared memory (a broadcast)
+//   feeds R pairs.
+// * No atomics: each block writes its partial sums to a scratch
+//   [S, kSums, n_pad] (allocated by the wrapper), and tile_reduce_kernel
+//   sums over S in fixed order into out.  Counters (sum_f, epi_nbs) are
+//   integers below 2^24, exact in any order.
+// * The diagonal is evaluated once, by the split whose j range holds i.
 //
 // Numerics: dist comes from pair_dist (no FMA contraction, IEEE sqrt), as
 // the plain torch version rounds it, so the gates (dist < r_max, dist < 1)
 // decide exactly as it does and the counters agree exactly.  The force
 // values may contract into FMAs and use rsqrtf, and the sums run in j
-// order; they agree with the plain version to f32 rounding.
+// order within a split, then over the splits; they agree with the plain
+// version to f32 rounding.
 #include <cuda_runtime.h>
 
 #include <cstring>
@@ -37,7 +46,8 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // i per block, and the width of a j tile
+constexpr int kThreads = 128;  // threads per block
+constexpr int kTileJ = 64;     // j points per shared-memory tile
 
 template <int N>
 struct Ptrs {
@@ -52,84 +62,163 @@ __device__ __forceinline__ Cell as_cell(const float (&v)[N]) {
   return c;
 }
 
-// ch: the functor's kFields channels, then old_v x y z, each [n_pad]
-template <class Force>
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copy of j in [j0, min(j0 + kTileJ, j_hi)) of every channel
+// into ``tile``, as one cp.async group.
+template <int K>
+__device__ __forceinline__ void stage(float (*tile)[kTileJ],
+                                      const Ptrs<K>& ch, int j0, int j_hi) {
+  for (int e = threadIdx.x; e < K * kTileJ; e += kThreads) {
+    const int k = e / kTileJ, jj = e % kTileJ;
+    if (j0 + jj < j_hi) cp_async4(&tile[k][jj], ch.p[k] + j0 + jj);
+  }
+  cp_async_commit();
+}
+
+// ch: the functor's kFields channels, then old_v x y z, each [n_pad].
+// part: [gridDim.y, kSums, n_pad], this block's split in row blockIdx.y.
+template <class Force, int R>
 __global__ void __launch_bounds__(kThreads)
 tile_pair_kernel(const Force f, const Ptrs<Force::kFields + 3> ch, int n,
-                 int n_pad, float* __restrict__ out) {
+                 int n_pad, int chunk, float* __restrict__ part) {
   using Cell = typename Force::Cell;
   constexpr int kF = Force::kFields;
-  __shared__ float tile[kF + 3][kThreads];
-  const int t = threadIdx.x;
-  const int i = blockIdx.x * kThreads + t;
+  constexpr int kK = kF + 3;
+  constexpr int kS = Force::kSums;
+  __shared__ float tile[2][kK][kTileJ];
+  const int i0 = blockIdx.x * kThreads * R + threadIdx.x;
+  const int j_lo = blockIdx.y * chunk;
+  const int j_hi = min(n, j_lo + chunk);
 
-  float av[kF];
+  Cell a[R];
+  float acc[R][kS];
 #pragma unroll
-  for (int k = 0; k < kF; ++k) av[k] = i < n_pad ? ch.p[k][i] : 0.0f;
-  const Cell a = as_cell<Cell>(av);
-  float acc[Force::kSums];
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * kThreads;
+    float av[kF];
 #pragma unroll
-  for (int m = 0; m < Force::kSums; ++m) acc[m] = 0.0f;
+    for (int k = 0; k < kF; ++k) av[k] = i < n_pad ? ch.p[k][i] : 0.0f;
+    a[r] = as_cell<Cell>(av);
+#pragma unroll
+    for (int m = 0; m < kS; ++m) acc[r][m] = 0.0f;
+  }
 
-  for (int j0 = 0; j0 < n; j0 += kThreads) {
-    __syncthreads();  // the previous tile is consumed
-    const int jl = j0 + t;
-#pragma unroll
-    for (int k = 0; k < kF + 3; ++k) tile[k][t] = jl < n ? ch.p[k][jl] : 0.0f;
+  const int n_tiles = j_hi > j_lo ? (j_hi - j_lo + kTileJ - 1) / kTileJ : 0;
+  if (n_tiles > 0) stage(tile[0], ch, j_lo, j_hi);
+  for (int tt = 0; tt < n_tiles; ++tt) {
+    const int j0 = j_lo + tt * kTileJ;
+    if (tt + 1 < n_tiles) {
+      stage(tile[(tt + 1) & 1], ch, j0 + kTileJ, j_hi);
+      cp_async_wait<1>();  // tile tt has landed, tile tt + 1 in flight
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    const int jn = min(kThreads, n - j0);
+    const float(*T)[kTileJ] = tile[tt & 1];
+    const int jn = min(kTileJ, j_hi - j0);
     for (int jj = 0; jj < jn; ++jj) {
-      if (j0 + jj == i) {
-        f.self_pair(a, acc);
-        continue;
-      }
       float bv[kF];
 #pragma unroll
-      for (int k = 0; k < kF; ++k) bv[k] = tile[k][jj];
+      for (int k = 0; k < kF; ++k) bv[k] = T[k][jj];
       const Cell b = as_cell<Cell>(bv);
-      const float dist = yalla::pair_dist(a.x, a.y, a.z, b.x, b.y, b.z);
-      f.pair(a, b, dist, tile[kF][jj], tile[kF + 1][jj], tile[kF + 2][jj],
-             acc);
-    }
-  }
-  if (i < n_pad) {
+      const float ovx = T[kF][jj], ovy = T[kF + 1][jj], ovz = T[kF + 2][jj];
+      const int j = j0 + jj;
 #pragma unroll
-    for (int m = 0; m < Force::kSums; ++m)
-      out[(long long)m * n_pad + i] = acc[m];
+      for (int r = 0; r < R; ++r) {
+        if (j == i0 + r * kThreads) {
+          f.self_pair(a[r], acc[r]);
+        } else {
+          const float dist =
+              yalla::pair_dist(a[r].x, a[r].y, a[r].z, b.x, b.y, b.z);
+          f.pair(a[r], b, dist, ovx, ovy, ovz, acc[r]);
+        }
+      }
+    }
+    __syncthreads();  // tile tt consumed before it is refilled
+  }
+
+  float* dst = part + (long long)blockIdx.y * kS * n_pad;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * kThreads;
+    if (i < n_pad) {
+#pragma unroll
+      for (int m = 0; m < kS; ++m) dst[(long long)m * n_pad + i] = acc[r][m];
+    }
   }
 }
 
-template <class Force>
+// out[m, i] = sum over s = 0 .. S-1, in that order, of part[s, m, i]
+__global__ void __launch_bounds__(256)
+tile_reduce_kernel(const float* __restrict__ part, int S, long long size,
+                   float* __restrict__ out) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= size) return;
+  float s = 0.0f;
+  for (int k = 0; k < S; ++k) s += part[k * size + idx];
+  out[idx] = s;
+}
+
+template <class Force, int R>
 int launch(const Force& f, const void* const* chans, int n, int n_pad,
-           float* out, cudaStream_t stream) {
-  if (n < 0 || n > n_pad) return (int)cudaErrorInvalidValue;
+           int rows, int S, int chunk, float* part, float* out,
+           cudaStream_t stream) {
+  if (n < 0 || n > n_pad || rows != R || S < 1 || chunk < 1 ||
+      (long long)S * chunk < n)
+    return (int)cudaErrorInvalidValue;
   Ptrs<Force::kFields + 3> ch;
   for (int k = 0; k < Force::kFields + 3; ++k)
     ch.p[k] = (const float*)chans[k];
-  const int blocks = (n_pad + kThreads - 1) / kThreads;
-  if (blocks > 0)
-    tile_pair_kernel<<<blocks, kThreads, 0, stream>>>(f, ch, n, n_pad, out);
+  const int bx = (n_pad + kThreads * R - 1) / (kThreads * R);
+  if (bx == 0) return (int)cudaGetLastError();
+  tile_pair_kernel<Force, R><<<dim3(bx, S), kThreads, 0, stream>>>(
+      f, ch, n, n_pad, chunk, part);
+  const long long size = (long long)Force::kSums * n_pad;
+  tile_reduce_kernel<<<(unsigned)((size + 255) / 256), 256, 0, stream>>>(
+      part, S, size, out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // chans: host array of the functor's channel pointers then old_v x y z,
-// each [n_pad] f32 on the device; params: host array of the functor's
-// parameters; out: [kSums, n_pad] f32 on the device.
+// each [n_pad] f32 on the device; rows, S, chunk: the plan of
+// ops/tile_pallas.py::tile_plan (rows must be the functor's R); params:
+// host array of the functor's parameters; part: [S, kSums, n_pad] f32
+// scratch and out: [kSums, n_pad] f32, both on the device.
 extern "C" int yalla_tile_pair_branching(const void* const* chans, int n,
-                                         int n_pad, const float* params,
-                                         float* out, cudaStream_t stream) {
+                                         int n_pad, int rows, int S,
+                                         int chunk, const float* params,
+                                         float* part, float* out,
+                                         cudaStream_t stream) {
   yalla::BranchingForce f;
   f.p = yalla::BranchingParams{params[0], params[1], params[2], params[3],
                                params[4], params[5], params[6], params[7],
                                params[8], params[9]};
-  return launch(f, chans, n, n_pad, out, stream);
+  return launch<yalla::BranchingForce, 2>(f, chans, n, n_pad, rows, S, chunk,
+                                          part, out, stream);
 }
 
 extern "C" int yalla_tile_pair_sorting(const void* const* chans, int n,
-                                       int n_pad, const float* params,
+                                       int n_pad, int rows, int S, int chunk,
+                                       const float* params, float* part,
                                        float* out, cudaStream_t stream) {
   const yalla::SortingAdhesion f{params[0], params[1]};
-  return launch(f, chans, n, n_pad, out, stream);
+  return launch<yalla::SortingAdhesion, 4>(f, chans, n, n_pad, rows, S,
+                                           chunk, part, out, stream);
 }

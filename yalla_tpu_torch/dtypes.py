@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["make_pt", "Float3", "pt_zeros_like"]
+__all__ = ["make_pt", "Float3", "pt_zeros_like", "device_of"]
 
 _PT_REGISTRY: dict[tuple[str, tuple[str, ...]], type] = {}
 
@@ -73,3 +73,14 @@ Float3 = make_pt("Float3")
 def pt_zeros_like(pt):
     """A Pt of the same type with every field zero."""
     return type(pt)(*(torch.zeros_like(a) for a in pt))
+
+
+def device_of(device, what):
+    """``torch.device(device)``; raises if it names CUDA and no CUDA device
+    is available.  The port's entry points default to ``"cuda"``: the
+    caller asks for the CPU by name."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}(device={str(device)!r}): no CUDA device "
+                           f"is available; pass device=\"cpu\" for the CPU")
+    return dev

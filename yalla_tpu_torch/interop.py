@@ -3,7 +3,9 @@
 Everything here goes through numpy, so the port never imports JAX: a JAX
 ``Cell``/``Float3`` state converts with ``np.asarray`` field by field, and a
 settled benchmark state comes from its ``.bench_cache/*.npz`` file.  The
-same numbers therefore go into both packages.
+same numbers therefore go into both packages.  Like every entry point of
+the port, each function here puts its tensors on the card unless the
+caller asks for the CPU (``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import json
 import numpy as np
 import torch
 
-from .dtypes import Float3
+from .dtypes import Float3, device_of
 from .links import Links
 from .solvers import GabrielEngine, GridEngine, LatticeEngine, TileEngine
 
@@ -27,9 +29,10 @@ BENCH_EXTRAS_CAP = 2048
 BENCH_Z_BLOCK = 2
 
 
-def pt_from_numpy(pt_type, fields, device="cpu"):
+def pt_from_numpy(pt_type, fields, device="cuda"):
     """A Pt of f32 tensors on ``device`` from a mapping (or a NamedTuple,
     e.g. a JAX Pt) of per-field arrays."""
+    device = device_of(device, "pt_from_numpy")
     if hasattr(fields, "_asdict"):
         fields = fields._asdict()
     return pt_type(*[torch.as_tensor(np.array(fields[f], np.float32),
@@ -42,9 +45,10 @@ def pt_to_numpy(pt):
     return {f: a.detach().cpu().numpy() for f, a in zip(pt._fields, pt)}
 
 
-def load_settled(path, pt_type, device="cpu"):
+def load_settled(path, pt_type, device="cuda"):
     """(X, old_v) from a settled-state ``.npz`` of the benchmark cache
     (fields ``X_<name>`` per Cell field and ``V_x/V_y/V_z``)."""
+    device = device_of(device, "load_settled")
     with np.load(path) as d:
         if list(d["__cell_fields"]) != list(pt_type._fields):
             raise ValueError(f"{path}: fields {list(d['__cell_fields'])} "
@@ -106,7 +110,7 @@ def engine_from(engine):
                          if k in keep})
 
 
-def links_from(links, device="cpu", seed=0):
+def links_from(links, device="cuda", seed=0):
     """The port's ``Links`` holding a JAX ``Links``' table (``d_a``,
     ``d_b``, ``d_n``, ``strength``), on ``device``.  The port's generator
     is seeded from ``seed``: the JAX key stream does not carry across."""

@@ -1,0 +1,235 @@
+"""Device time of the lattice and all-pairs pair kernels (K1, K3) and of the
+steps around them, by ``torch.profiler``, on one GPU.
+
+    python3 yalla_tpu_torch/kernel_profile.py [ROOT ...]
+
+ROOT is a checkout of the repository (default: this one).  For each ROOT in
+turn, each in a process of its own that imports ``yalla_tpu_torch`` and
+reads ``.bench_cache`` and ``bench_state.json`` from that ROOT, it prints
+one JSON line:
+
+* ``k1``: device ms per pass of each K1 kernel on the settled 500k
+  branching state at ``bench_state.json`` ``branching_500000``;
+* ``k3``: device ms per pass of each K3 kernel on the settled 5k sorting
+  state with the hand-written adhesion;
+* ``step_500k`` and ``step_5k_tile``: per step of the 500k slice and of the
+  5k slice on ``TileEngine(pallas=True)``, the device busy ms (the sum of
+  every kernel's and copy's device time in a profiled window, over its
+  steps), the device kernels launched, and the wall ms of each of
+  ``WALL_WINDOWS`` unprofiled windows.
+
+A root named more than once runs each time, so two trees compare in one
+call in turns: ``A B A B A B``.  Given exactly two trees in alternation,
+it then prints one JSON line of verdicts, per metric: ``better`` or
+``worse`` (the second tree against the first) where every pair agrees and
+each pair's difference exceeds the spread of both runs' windows, else
+``unresolved``.  The card's name and power limit lead every line.  Exits
+non-zero without a CUDA device, or if a window shows no device time.
+"""
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# run as a script, this file's directory leads sys.path; the package is
+# imported from ROOT instead
+if Path(sys.path[0]).resolve() == Path(__file__).resolve().parent:
+    sys.path.pop(0)
+
+K1_KERNELS = ("lattice_pair_kernel", "extras_pair_kernel")
+K3_KERNELS = ("tile_pair_kernel", "tile_reduce_kernel")
+WALL_WINDOWS = 5
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def device_window(fn, calls):
+    """Profile ``calls`` calls of ``fn`` after one warm-up; returns
+    ({kernel or op key: device ms per call}, device ms per call of all
+    kernels and copies, device kernels per call).  Raises if the profiler
+    shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per, busy, kernels = {}, 0.0, 0
+    for e in prof.key_averages():
+        self_us = getattr(e, "self_device_time_total", None)
+        if self_us is None:
+            self_us = e.self_cuda_time_total
+        if self_us > 0:
+            per[e.key] = self_us / 1e3 / calls
+            busy += self_us / 1e3 / calls
+            kernels += e.count
+    if not busy > 0:
+        raise RuntimeError("torch.profiler shows no device time")
+    return per, busy, kernels / calls
+
+
+def named(per, names):
+    """ms of the keys containing each of ``names`` (0 where none does)."""
+    return {n: sum(v for k, v in per.items() if n in k) for n in names}
+
+
+def _wall_ms(fn, calls):
+    """Wall ms per call of ``fn`` in each of ``WALL_WINDOWS`` windows of
+    ``calls`` calls, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(WALL_WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / calls)
+    return out
+
+
+def _one(root):
+    """The measurements of one tree, as a dict."""
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+    import yalla_tpu_torch
+    assert Path(yalla_tpu_torch.__file__).resolve().is_relative_to(root)
+    from yalla_tpu_torch import _build
+    from yalla_tpu_torch.interop import (bench_config, bench_engine,
+                                         load_settled)
+    from yalla_tpu_torch.models import branching as B
+    from yalla_tpu_torch.models import sorting as S
+    from yalla_tpu_torch.ops.common import friction_w_neighbour
+    from yalla_tpu_torch.ops.lattice_pallas import lattice_pairwise_pallas
+    from yalla_tpu_torch.ops.lattice_xla import lattice_build
+    from yalla_tpu_torch.ops.tile_pallas import tile_pairwise_pallas
+    from yalla_tpu_torch.solvers import Solution, TileEngine, augment
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.library()
+    out = {"root": str(root), "card": card(),
+           "build_s": time.perf_counter() - t0}
+    cache = root / ".bench_cache"
+
+    def solution(path, n, engine, cube_size, Cell, n_pad=None):
+        X, ov = load_settled(path, Cell, dev)
+        sol = Solution(Cell, n, engine=engine, cube_size=cube_size,
+                       device=dev, n_pad=n_pad)
+        sol.h_X = Cell(*(a.cpu().numpy() for a in X))
+        sol.h_n = n
+        sol.copy_to_device()
+        sol.d_old_v = ov
+        return sol
+
+    # K1 and the 500k slice
+    cfg = bench_config(root / "bench_state.json", "branching_500000")
+    engine = bench_engine(cfg)
+    force = B.make_force(B.Params())
+    cube, gs, C = float(cfg["cube"]), engine.grid_size, engine.capacity
+    settled = cache / "settled_branching_500000_s0_v1.npz"
+    X, ov = load_settled(settled, B.Cell, dev)
+    lay = lattice_build(X, ov, 500_000, cube, gs, C, engine.extras_cap)
+    lay = lay._replace(T=augment(lay.T, 500_000, B.precompute),
+                       E=augment(lay.E, 500_000, B.precompute))
+    per, _, _ = device_window(lambda: lattice_pairwise_pallas(
+        force, friction_w_neighbour, lay, 500_000, cube, grid_size=gs,
+        capacity=C, z_block=engine.z_block,
+        extras_block_cap=engine.extras_block_cap), 10)
+    out["k1"] = named(per, K1_KERNELS)
+    del X, ov, lay
+    sol = solution(settled, 500_000, engine, cube, B.Cell)
+    dt = B.Params().dt
+
+    def step500k():
+        sol.take_steps(1, dt, force, precompute=B.precompute)
+    per, busy, kernels = device_window(step500k, 4)
+    out["step_500k"] = {"busy_ms": busy, "kernels": kernels,
+                        "k1_ms": sum(named(per, K1_KERNELS).values()),
+                        "wall_ms": _wall_ms(step500k, 10)}
+    del sol
+
+    # K3 and the 5k slice on it
+    sp = S.Params()
+    settled5k = cache / "settled_sorting_p5120_5000_s0_v1.npz"
+    X, ov = load_settled(settled5k, S.Cell, dev)
+    adhesion = S.make_adhesion(sp)
+    per, _, _ = device_window(lambda: tile_pairwise_pallas(
+        adhesion, friction_w_neighbour, X, ov, 5000), 20)
+    out["k3"] = named(per, K3_KERNELS)
+    sol = solution(settled5k, 5000, TileEngine(pallas=True), sp.r_max,
+                   S.Cell, n_pad=5120)
+
+    def step5k():
+        sol.take_steps(1, sp.dt, adhesion)
+    per, busy, kernels = device_window(step5k, 20)
+    out["step_5k_tile"] = {"busy_ms": busy, "kernels": kernels,
+                           "k3_ms": sum(named(per, K3_KERNELS).values()),
+                           "wall_ms": _wall_ms(step5k, 100)}
+    return out
+
+
+def _metrics(run):
+    """{metric: list of values} of one run; one value for device times,
+    the windows for wall times."""
+    return {"k1_ms": [sum(run["k1"].values())],
+            "k3_ms": [sum(run["k3"].values())],
+            "busy_500k_ms": [run["step_500k"]["busy_ms"]],
+            "busy_5k_tile_ms": [run["step_5k_tile"]["busy_ms"]],
+            "wall_500k_ms": run["step_500k"]["wall_ms"],
+            "wall_5k_tile_ms": run["step_5k_tile"]["wall_ms"]}
+
+
+def verdicts(first, second):
+    """{metric: "better" | "worse" | "unresolved"} of the runs of the
+    second tree against those of the first, taken in pairs in order."""
+    out = {}
+    for m in _metrics(first[0]):
+        signs = set()
+        for a, b in zip(first, second):
+            va, vb = _metrics(a)[m], _metrics(b)[m]
+            diff = statistics.median(vb) - statistics.median(va)
+            spread = max(max(va) - min(va), max(vb) - min(vb))
+            signs.add(0 if abs(diff) <= spread else (1 if diff > 0 else -1))
+        out[m] = ("worse" if signs == {1} else "better" if signs == {-1}
+                  else "unresolved")
+    return out
+
+
+def main(argv):
+    if len(argv) >= 2 and argv[0] == "--one":
+        import torch
+        if not torch.cuda.is_available():
+            raise SystemExit("kernel_profile: no CUDA device")
+        print(json.dumps(_one(argv[1])))
+        return
+    roots = argv or [str(Path(__file__).resolve().parent.parent)]
+    runs = []
+    for root in roots:
+        line = subprocess.run([sys.executable, __file__, "--one", root],
+                              check=True, stdout=subprocess.PIPE,
+                              text=True).stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        runs.append(json.loads(line))
+    pair = roots[:2]
+    if len(set(roots)) == 2 and len(roots) % 2 == 0 and \
+            roots == pair * (len(roots) // 2):
+        print(json.dumps({"card": runs[0]["card"], "first": pair[0],
+                          "second": pair[1], "pairs": len(roots) // 2,
+                          "verdicts": verdicts(runs[0::2], runs[1::2])}))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .dtypes import pt_zeros_like
+from .dtypes import device_of, pt_zeros_like
 from .ops.grid_xla import _row_offsets, build_grid
 from .solvers import GenericForce
 
@@ -44,10 +44,11 @@ class Draws(NamedTuple):
 class Links:
     """Fixed-capacity link container (ref links.cuh:24-91).  ``h_a`` /
     ``h_b`` are the host mirror (int32 numpy), ``d_a`` / ``d_b`` the
-    int64 tensors on ``device``; ``d_n`` is the active count (an int)."""
+    int64 tensors on ``device`` (the card unless the caller asks for the
+    CPU); ``d_n`` is the active count (an int)."""
 
-    def __init__(self, n_max, strength=1.0 / 5, seed=None, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, n_max, strength=1.0 / 5, seed=None, device="cuda"):
+        self.device = device_of(device, "Links")
         self.n_max = int(n_max)
         self.n_pad = _pad(self.n_max)
         self.strength = float(strength)

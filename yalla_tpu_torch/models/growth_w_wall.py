@@ -90,7 +90,7 @@ def update_protrusions_wall(a, b, X, n_cells, draws):
     return torch.where(ok, src, a), torch.where(ok, cand, b)
 
 
-def half_space_solution(n_cells, engine, device="cpu", seed=0):
+def half_space_solution(n_cells, engine, device="cuda", seed=0):
     """A ``Solution`` of ``n_cells`` cells (the wall node included) on
     ``device`` holding :func:`half_space_tissue`, with ``cube_size``
     ``r_max``."""

@@ -9,8 +9,9 @@ force without one on the GPU.  ``PAIR_FUNCTORS`` describes each functor of
 ``csrc/forces.cuh``: the C entry point of each kernel that implements it,
 the friction it implements (the torch friction declares its name as
 ``friction.cuda_friction``), the Pt fields it reads (then old_v x y z), the
-dF fields and aux channels it sums (then sum_f and sum_v x y z), and the
-parameter values it takes.
+dF fields and aux channels it sums (then sum_f and sum_v x y z), the
+parameter values it takes, and, for the all-pairs kernel, the i-points
+each thread holds (``tile_rows``, its template parameter R there).
 """
 from __future__ import annotations
 
@@ -33,14 +34,16 @@ PAIR_FUNCTORS = {
         dF=("x", "y", "z", "u", "v"),
         aux=("epi_nbs", "pg_x", "pg_y", "pg_z"),
         params=("r_max", "lam", "D_u", "D_v", "f_v", "f_u", "g_u", "m_u",
-                "m_v", "s_u")),
+                "m_v", "s_u"),
+        tile_rows=2),
     "sorting_adhesion": dict(
         entries={"tile": "yalla_tile_pair_sorting"},
         friction="friction_w_neighbour",
         fields=("x", "y", "z", "ctype"),
         dF=("x", "y", "z"),
         aux=(),
-        params=("r_max", "r_min")),
+        params=("r_max", "r_min"),
+        tile_rows=4),
     "growth_w_wall_relu": dict(
         entries={"gabriel": "yalla_gabriel_pair_wall_relu"},
         friction="wall_friction",

@@ -9,12 +9,16 @@ in extras order when the layout carries overflow extras (with the scalar
 * ``lattice_pairwise_pallas`` is the kernel wrapper: a CUDA tensor goes to
   ``csrc/lattice_pair.cu``, a CPU tensor to ``lattice_pairwise_plain``.
   The kernel runs forces that declare a device functor
-  (``ops/functors.py``) and refuses the rest on the GPU.
+  (``ops/functors.py``) and refuses the rest on the GPU;
+  :func:`lattice_plan` sizes its bricks of cubes and their shared memory.
 * ``lattice_pairwise_plain`` is generic over any torch force: the
   stencil lattice pass of ``lattice_xla`` plus an extras pass built on
   ``evaluate_pairs``.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -23,11 +27,78 @@ from .functors import pair_functor, param_array, require, unpack_sums
 from .lattice_xla import lattice_pairwise_resident, stencil_slots
 
 __all__ = ["lattice_pairwise_pallas", "lattice_pairwise_plain",
-           "extras_block_overflow", "DEFAULT_Y_BLOCK"]
+           "extras_block_overflow", "lattice_plan", "LatticePlan",
+           "DEFAULT_Y_BLOCK"]
 
 # y-block height of the JAX kernel's (z, y) blocks; its extras sidecar
 # tables are per block, and ``__err_extras_block`` counts their overflow
 DEFAULT_Y_BLOCK = 16
+
+
+# csrc/lattice_pair.cu: channels, output rows, threads per block, the
+# in-reach partners a lane lists, and the shared memory a block may take on
+# the H100 (227 KB; above 48 KB only by opting in)
+LATTICE_CHANS = 12
+LATTICE_SUMS = 13
+LATTICE_THREADS = 256
+LATTICE_LIST = 8
+SMEM_MAX = 232_448
+# bricks (bz, by, bx) of cubes per block, largest first; the plan takes the
+# first whose shared memory fits SMEM_BUDGET (two blocks per SM, each with
+# 1 KB reserved)
+BRICKS = ((2, 4, 8), (2, 2, 8), (1, 2, 8), (1, 1, 8), (1, 1, 4), (1, 1, 2),
+          (1, 1, 1))
+SMEM_BUDGET = 112 * 1024
+
+
+class LatticePlan(NamedTuple):
+    """Launch plan of the lattice pair kernel: ``brick`` (bz, by, bx) cubes
+    per block, the dynamic shared-memory bytes ``smem`` per block (the
+    kernel opts in above the default 48 KB), and the number of ``blocks``
+    (ragged bricks at the grid's edge masked)."""
+    brick: tuple
+    smem: int
+    blocks: int
+
+
+def lattice_smem_bytes(brick, capacity):
+    """Shared-memory bytes of one block (``csrc/lattice_pair.cu``
+    ``smem_bytes``): for each halo slot a list entry of x, y, z and its id
+    (16 bytes) and its other 9 channels, the live count before each cube
+    of each halo x-row, two ints per halo cube, the work list, and two
+    16-bit lists of partners in reach per lane."""
+    bz, by, bx = brick
+    hx, rows = bx + 2, (by + 2) * (bz + 2)
+    H = hx * rows
+    B = bz * by * bx
+    HC = H * capacity
+    return 16 * HC + 4 * (LATTICE_CHANS - 3) * HC + 4 * rows * (hx + 1) + \
+        8 * H + 4 * (B + 1) + 4 * B * capacity + \
+        4 * LATTICE_LIST * LATTICE_THREADS
+
+
+@functools.lru_cache(maxsize=64)
+def lattice_plan(grid_size, capacity):
+    """The brick, halo, shared memory and blocks of the lattice pair kernel
+    on a ``grid_size`` grid of ``capacity`` slots per cube.  Bricks are
+    clipped to the grid; raises if not even one cube and its halo fit the
+    card's shared memory."""
+    gx, gy, gz = grid_dims(grid_size)
+    C = int(capacity)
+    if C < 1 or min(gx, gy, gz) < 1 or gx * gy * gz * C >= 2 ** 31:
+        raise ValueError(f"lattice_plan: grid {(gx, gy, gz)}, capacity {C}")
+    for bz, by, bx in BRICKS:
+        brick = (min(bz, gz), min(by, gy), min(bx, gx))
+        smem = lattice_smem_bytes(brick, C)
+        if smem <= SMEM_BUDGET:
+            break
+    if smem > SMEM_MAX:
+        raise ValueError(f"lattice_plan: capacity {C} needs {smem} bytes of "
+                         f"shared memory for one cube and its halo, above "
+                         f"the card's {SMEM_MAX}")
+    bz, by, bx = brick
+    blocks = -(-gz // bz) * -(-gy // by) * -(-gx // bx)
+    return LatticePlan(brick, smem, blocks)
 
 
 def _y_block(gy):
@@ -201,11 +272,13 @@ def lattice_pairwise_pallas(pw_int, pw_friction, layout, n, cube_size, *,
     else:
         eout = None
         e_args = (None, None, None, None, 0)
+    plan = lattice_plan((gx, gy, gz), C)
     lib = _build.library()
     lattice_pairwise_pallas.launches += 1
     _build.check(getattr(lib, spec["entries"]["lattice"])(
         _build.pointers(chans), occ.data_ptr(), *e_args, gx, gy, gz, C,
-        float(cube_size), param_array(spec, params), out.data_ptr(),
+        float(cube_size), *plan.brick, plan.smem,
+        param_array(spec, params), out.data_ptr(),
         eout.data_ptr() if has_e else None, _build.stream_handle(dev)),
         "lattice pair kernel")
 

@@ -217,7 +217,7 @@ def stencil_slots(cx, cy, cz, grid_size, capacity):
     ok = (x >= 0) & (x < gx) & (y >= 0) & (y < gy) & (z >= 0) & (z < gz)
     cube = torch.where(ok, (z * gy + y) * gx + x, 0)
     lanes = torch.arange(C, device=cx.device)
-    slots = (cube[:, :, None] * C + lanes).reshape(cx.shape[0], -1)
+    slots = (cube[:, :, None] * C + lanes).reshape(cx.shape[0], 27 * C)
     return slots, ok.repeat_interleave(C, dim=1)
 
 

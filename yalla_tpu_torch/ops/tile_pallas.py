@@ -9,19 +9,65 @@ first ``n`` points, the i == j diagonal included.
   ``csrc/tile_pair.cu``, a CPU tensor to ``tile_pairwise_plain``.  The
   kernel runs forces that declare a device functor (``ops/functors.py``)
   and refuses the rest on the GPU.  Unlike the TPU kernel it takes any
-  ``n_pad``.
+  ``n_pad``.  :func:`tile_plan` splits j across blocks (the kernel's
+  grid, and the scratch its reduction pass sums).
 * ``tile_pairwise_plain`` is the plain all-pairs path,
   ``pairwise_xla.tile_pairwise`` -- the oracle the JAX tests hold the TPU
   kernel against.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from .functors import pair_functor, param_array, require, unpack_sums
 from .pairwise_xla import tile_pairwise
 
-__all__ = ["tile_pairwise_pallas", "tile_pairwise_plain"]
+__all__ = ["tile_pairwise_pallas", "tile_pairwise_plain", "tile_plan",
+           "TilePlan"]
+
+# csrc/tile_pair.cu: threads per block and j points per shared-memory tile
+TILE_THREADS = 128
+TILE_J = 64
+# blocks the plan puts on each streaming multiprocessor
+BLOCKS_PER_SM = 4
+
+
+class TilePlan(NamedTuple):
+    """Launch plan of the all-pairs kernel: ``rows`` i-points per thread,
+    j split into ``splits`` ranges of ``chunk`` points, a grid of
+    ``blocks`` = (i blocks, splits), and the partial sums' scratch shape
+    ``(splits, sums, n_pad)``."""
+    rows: int
+    splits: int
+    chunk: int
+    blocks: tuple
+    scratch: tuple
+
+
+@functools.lru_cache(maxsize=64)
+def tile_plan(n, n_pad, rows, sums, sms):
+    """Split the j range of an ``n``-point all-pairs pass over ``n_pad``
+    rows so that the grid holds about ``BLOCKS_PER_SM`` blocks on each of
+    the card's ``sms`` streaming multiprocessors, each split at least one
+    tile of j (none empty)."""
+    if not 0 <= n <= n_pad or rows < 1 or sums < 1 or sms < 1:
+        raise ValueError(f"tile_plan: n {n}, n_pad {n_pad}, rows {rows}, "
+                         f"sums {sums}, sms {sms}")
+    i_blocks = -(-n_pad // (TILE_THREADS * rows))
+    want = -(-sms * BLOCKS_PER_SM // max(i_blocks, 1))
+    splits = max(1, min(want, -(-n // TILE_J)))
+    chunk = max(1, -(-n // splits))
+    splits = max(1, -(-n // chunk))
+    return TilePlan(rows, splits, chunk, (i_blocks, splits),
+                    (splits, sums, n_pad))
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def tile_pairwise_plain(pw_int, pw_friction, X, old_v, n):
@@ -51,13 +97,18 @@ def tile_pairwise_pallas(pw_int, pw_friction, X, old_v, n):
                      f"tile pair kernel: X.{f}") for f in spec["fields"]] + \
         [require(a, (n_pad,), f32, dev, "tile pair kernel: old_v")
          for a in old_v]
-    out = torch.empty((len(spec["dF"]) + len(spec["aux"]) + 4, n_pad),
-                      dtype=f32, device=dev)
+    sums = len(spec["dF"]) + len(spec["aux"]) + 4
+    plan = tile_plan(n, n_pad, spec["tile_rows"], sums,
+                     _sm_count(dev.index if dev.index is not None
+                               else torch.cuda.current_device()))
+    part = torch.empty(plan.scratch, dtype=f32, device=dev)
+    out = torch.empty((sums, n_pad), dtype=f32, device=dev)
     lib = _build.library()
     tile_pairwise_pallas.launches += 1
     _build.check(getattr(lib, spec["entries"]["tile"])(
-        _build.pointers(chans), n, n_pad, param_array(spec, params),
-        out.data_ptr(), _build.stream_handle(dev)), "tile pair kernel")
+        _build.pointers(chans), n, n_pad, plan.rows, plan.splits, plan.chunk,
+        param_array(spec, params), part.data_ptr(), out.data_ptr(),
+        _build.stream_handle(dev)), "tile pair kernel")
     return unpack_sums(out, spec, pw_int, type(X))
 
 

@@ -21,7 +21,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from .dtypes import Float3, make_pt
+from .dtypes import Float3, device_of, make_pt
 from .ops.common import (ERR_PREFIX, apply_derived_aux, apply_post_pair,
                          friction_on_background, friction_w_neighbour,
                          grid_dims, mask_tree)
@@ -343,8 +343,9 @@ class Solution:
     """Host facade owning padded device state + a host mirror.
 
     ``h_X`` is a Pt of numpy arrays (mutable in place); ``copy_to_device``
-    / ``copy_to_host`` move it to and from ``device``.  A CUDA device is
-    used only if it exists: asking for one without a GPU raises.  ``n_pad``
+    / ``copy_to_host`` move it to and from ``device``, the card unless
+    the caller asks for the CPU (``device="cpu"``): without a GPU the
+    default raises.  ``n_pad``
     (default: ``n_max`` rounded up as the JAX package rounds it) is the
     row count of the device state.
 
@@ -357,11 +358,8 @@ class Solution:
 
     def __init__(self, pt_type, n_max, *, solver="tile", grid_size=50,
                  cube_size=1.0, row_cap=32, gabriel_coefficient=0.8,
-                 engine=None, device="cpu", n_pad=None):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"Solution(device={device!r}): no CUDA device is available")
+                 engine=None, device="cuda", n_pad=None):
+        self.device = device_of(device, "Solution")
         self.pt_type = pt_type
         self.n_max = int(n_max)
         self.n_pad = int(n_pad) if n_pad else _pad_size(self.n_max)
