@@ -18,9 +18,13 @@ own line:
 
 1. the card's name and power limit, and the kernel build time;
 2. the pour kernel (K2) against its plain version on the main path's
-   500k build: bit-exact; beside it, the time of ``index_put_`` placing
-   the same entries (the one PyTorch call that computes K2's function,
-   timed here and never called by the port);
+   500k build: bit-exact, nothing unrouted; its device time (every kernel
+   its wrapper launches) from a short ``torch.profiler`` window; beside
+   it, the time of ``index_put_`` placing the same entries (the one
+   PyTorch call that computes K2's function, timed here and never called
+   by the port) into a buffer zeroed once beforehand, and of
+   ``torch.zeros`` + ``index_put_`` (the zero fill is part of K2's
+   function); the kernel's registers and spills;
 3. the lattice pair kernel (K1) against its plain version on one layout of
    that state: counters and flags exact, the other sums within
    ``|kernel - plain| <= RTOL * |plain| + ATOL * max(1, max|plain|)`` per
@@ -41,7 +45,9 @@ own line:
    factored form ``x_i * sum_w - sum_j w x_j`` cancels two sums of size
    ``|x| * sum|w|``), ``sum_v`` as K1's; first, the kernel's ``rsqrtf``
    against ``torch.rsqrt`` bit for bit over every pair's squared
-   distance, which the exact friction sum rests on;
+   distance, which the exact friction sum rests on; its device time per
+   pass (pair plus reduce kernels), registers and spills; then the same
+   with the neighbour count ``nbs`` as an aux channel, exact;
 7. the tile all-pairs kernel (K3) against its plain version on the same
    state with the hand-written adhesion (friction sum exact), and on the
    600-cell branching state with its polarity channels (friction sum and
@@ -61,7 +67,9 @@ own line:
     of the 100k half-space tissue with the growth_w_wall force and
     friction: the friction sum (kept non-wall pairs) exact, every flag 0
     and equal, F and sum_v within ``compare_sums``'s tolerance; ms per
-    pass of each, and of the lattice build inside them;
+    pass of each, and of the lattice build inside them; the kernel's
+    device time; and K2 on that lattice build, bit-exact, with its device
+    time;
 11. the small Gabriel slice: 2 steps of the growth_w_wall loop on the
     2,000-cell tissue (gs 16, C 8, NC 20; the protrusion draws made from a
     numpy seed) on the GPU against the same steps on the CPU plain path,
@@ -71,7 +79,9 @@ own line:
     warm-up step, every flag 0, the state finite, K5 and K2 launched
     2 * NG times; ms/step and cell-steps/s.
 
-It then prints the kernels' JSON record and, last, the device record.
+It then prints the kernels' JSON record (each kernel's ``device_ms`` is
+its profiler time on its path's main shapes) and, last, the device
+record.
 Each kernel's ``bound_ms`` is the least time the card could take for its
 function on this run's inputs: the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and the
@@ -164,6 +174,33 @@ def profiled_ms(fn, names, calls=5):
         raise AssertionError(f"torch.profiler shows no device time for "
                              f"{missing}")
     return per
+
+
+def device_ms(fn, calls=10):
+    """Device milliseconds per call of every kernel and copy ``fn``
+    launches, from a ``torch.profiler`` window (raises if it shows
+    none)."""
+    from yalla_tpu_torch.kernel_profile import device_window
+    return device_window(fn, calls)[1]
+
+
+def check_pour(tag, cs, grid, capacity):
+    """K2 against its plain version on one build's sort ``cs``: the same
+    bits in every slot, ``n_unrouted`` 0.  Returns the max abs error."""
+    import torch
+    from yalla_tpu_torch.ops.lattice_pour import pour_pallas, pour_plain
+    got = pour_pallas(cs.S, cs.row_starts, grid, capacity)
+    want = pour_plain(cs.S, cs.row_starts, grid, capacity)
+    torch.cuda.synchronize()
+    # bit for bit: +0.0 in empty slots
+    for name, a, b in zip(("out", "live"), got, want):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"pour {tag} {name}: kernel != plain")
+    if not torch.equal(got[2], want[2]) or int(got[2]):
+        raise AssertionError(f"pour {tag}: {int(got[2])} entries unrouted")
+    print(f"K2 pour on the {tag} build: bit-exact vs plain (out, live), "
+          f"n_unrouted 0, {int(got[1].sum())} slots live")
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
 
 
 def ptxas_report(names):
@@ -337,7 +374,8 @@ def check_rsqrt(X, n):
 
 def sorting_kernel_checks(dev):
     """Phases 6 and 7: K4 and K3 against their plain versions.  Returns
-    {kernel: (max abs err, ms, plain ms)}."""
+    {kernel: (max abs err, ms, plain ms, bound ms, bound by, device
+    ms)}."""
     import torch
     from yalla_tpu_torch.interop import load_settled
     from yalla_tpu_torch.models import branching as B
@@ -378,13 +416,28 @@ def sorting_kernel_checks(dev):
               f"atol {atol} x max(1, max|plain|)); {ms:.4f} ms/pass vs "
               f"plain {plain_ms:.4f} ms/pass; bound {out[name][3]:.4f} ms "
               f"({out[name][4]})")
-        if name == "tile_pair":
-            dev_ms = profiled_ms(k, ["tile_pair_kernel",
-                                     "tile_reduce_kernel"])
-            print(f"tile_pair device time per 5k pass (torch.profiler): "
-                  f"{sum(dev_ms.values()):.4f} ms = " + " + ".join(
-                      f"{v:.4f} {k}" for k, v in dev_ms.items()))
-            ptxas_report(["tile_pair_kernel", "tile_reduce_kernel"])
+        names = {"central_pair": ["central_pair_kernel",
+                                  "central_reduce_kernel"],
+                 "tile_pair": ["tile_pair_kernel", "tile_reduce_kernel"]}
+        dev_ms = profiled_ms(k, names[name])
+        out[name] += (sum(dev_ms.values()),)
+        print(f"{name} device time per 5k pass (torch.profiler): "
+              f"{out[name][-1]:.4f} ms = " + " + ".join(
+                  f"{v:.4f} {k}" for k, v in dev_ms.items()))
+        ptxas_report(names[name])
+
+    # K4 with the neighbour count as its aux channel
+    counting = S.make_adhesion_central(sp, count_neighbours=True)
+    got = central_pairwise_mxu(counting, friction_w_neighbour, X, ov, n)
+    want = central_pairwise_plain(counting, friction_w_neighbour, X, ov, n)
+    torch.cuda.synchronize()
+    err = compare_sums("central_pair nbs 5k", flatten(got, "", n),
+                       flatten(want, "", n), {"sum_f", "nbs"}, K4_ATOL)
+    print(f"central_pair with the nbs aux on the settled 5k state: sum_f and "
+          f"nbs exact ({int(want[3]['nbs'][:n].sum())} neighbour pairs), "
+          f"max abs err {err:.3g}")
+    err4, *rest = out["central_pair"]
+    out["central_pair"] = (max(err4, err), *rest)
 
     Xb, ovb = load_settled(SETTLED_SMALL, B.Cell, dev)
     Xb = augment(Xb, N_SMALL, B.precompute)
@@ -458,14 +511,16 @@ def sorting_slices(dev):
 
 
 def gabriel_kernel_check(dev):
-    """Phase 10: K5 against its plain version on the 100k tissue.  Returns
-    (max abs err, ms, plain ms)."""
+    """Phase 10: K5 against its plain version on the 100k tissue, and K2
+    on its lattice build.  Returns ((max abs err, ms, plain ms, bound ms,
+    bound by, device ms) of K5, K2's max abs err)."""
     import torch
     from yalla_tpu_torch.models import growth_w_wall as W
     from yalla_tpu_torch.ops.common import cube_ids
     from yalla_tpu_torch.ops.gabriel_pallas import (gabriel_lattice_pallas,
                                                     gabriel_lattice_plain)
-    from yalla_tpu_torch.ops.lattice_xla import lattice_build
+    from yalla_tpu_torch.ops.lattice_pour import pour_pallas
+    from yalla_tpu_torch.ops.lattice_xla import lattice_build, sort_by_cube
     from yalla_tpu_torch.solvers import Solution
     n_pad = Solution(W.Float3, NG_CELLS, device=dev).n_pad
     h, n = W.half_space_tissue(NG_CELLS, n_pad)
@@ -507,9 +562,15 @@ def gabriel_kernel_check(dev):
     n_bytes = nbytes(*X, *ov) * n // n_pad + nbytes(*got[0], got[1],
                                                     *got[2])
     bound_ms, bound_by = bound(n_bytes, n_ops)
-    build_ms = cuda_ms(lambda: lattice_build(
-        X, ov, n, W.r_max, GABRIEL_100K["grid_size"],
-        GABRIEL_100K["capacity"]), 20)
+    gs, C = GABRIEL_100K["grid_size"], GABRIEL_100K["capacity"]
+    build_ms = cuda_ms(lambda: lattice_build(X, ov, n, W.r_max, gs, C), 20)
+    dev_ms = profiled_ms(k5, ["gabriel_pair_kernel"])["gabriel_pair_kernel"]
+    # K2 on this path's lattice build
+    cs = sort_by_cube(X, ov, n, W.r_max, gs, C)
+    pour_err = check_pour("100k Gabriel", cs, gs, C)
+    pour_dev = device_ms(lambda: pour_pallas(cs.S, cs.row_starts, gs, C))
+    print(f"K2 pour device time per 100k build (torch.profiler): "
+          f"{pour_dev:.4f} ms")
     print(f"K5 Gabriel lattice on the 100k half-space tissue ({n} cells in "
           f"{n_pad} rows, gs {GABRIEL_100K['grid_size']}, C "
           f"{GABRIEL_100K['capacity']}, NC "
@@ -517,8 +578,9 @@ def gabriel_kernel_check(dev):
           f"ends, sum_f and flags {flags} exact, max abs err {err:.3g} (rtol "
           f"{RTOL}, atol {ATOL} x max(1, max|plain|)); {ms:.4f} ms/pass vs "
           f"plain {plain_ms:.4f} ms/pass, of which the lattice build "
-          f"{build_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
-    return err, ms, plain_ms, bound_ms, bound_by
+          f"{build_ms:.4f} ms; gabriel_pair_kernel {dev_ms:.4f} ms per pass "
+          f"(torch.profiler); bound {bound_ms:.4f} ms ({bound_by})")
+    return (err, ms, plain_ms, bound_ms, bound_by, dev_ms), pour_err
 
 
 def gabriel_run(device, n_cells, engine, n_steps, seed, links_seed=None):
@@ -660,32 +722,50 @@ def main():
           f"extras_block_cap {engine.extras_block_cap}")
 
     # ---- K2: pour kernel against its plain version -----------------------
-    S = sort_by_cube(X, old_v, N_CELLS, cube, gs, C).S
-    got = pour_pallas(S, n_slots)
-    want = pour_plain(S, n_slots)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("out", "live", "n_unrouted"), got, want):
-        if not torch.equal(a, b):
-            raise AssertionError(f"pour {name}: kernel != plain")
-    pour_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    pour_ms = cuda_ms(lambda: pour_pallas(S, n_slots), 20)
-    pour_plain_ms = cuda_ms(lambda: pour_plain(S, n_slots), 20)
-    # the library call: index_put_ of the placed entries (slot-major rows,
-    # with the live flag as their last channel) into a zeroed buffer
+    cs = sort_by_cube(X, old_v, N_CELLS, cube, gs, C)
+    pour_err = check_pour("500k", cs, gs, C)
+
+    def k2():
+        return pour_pallas(cs.S, cs.row_starts, gs, C)
+    pour_ms = cuda_ms(k2, 20)
+    pour_plain_ms = cuda_ms(
+        lambda: pour_plain(cs.S, cs.row_starts, gs, C), 20)
+    # every kernel the wrapper launches (the pour and the sum of its
+    # per-block counts), by the profiler
+    pour_dev = device_ms(k2)
+    # the library calls: index_put_ of the placed entries (slot-major rows,
+    # with the live flag as their last channel), into a buffer zeroed once
+    # outside the timing as before, and with the zero fill that K2's
+    # function includes
+    S = cs.S
     placed = (S[-1] >= 0) & (S[-1] < n_slots)
     dst = S[-1][placed].to(torch.int64)
     rows = torch.cat([S[:-1, placed], torch.ones_like(S[:1, placed])]).T \
         .contiguous()
     lib_out = torch.zeros((n_slots, S.shape[0]), device=dev)
-    pour_lib_ms = cuda_ms(lambda: lib_out.index_put_((dst,), rows), 20)
-    if not torch.equal(lib_out[:, :-1].T, want[0]):
+
+    def put():
+        return lib_out.index_put_((dst,), rows)
+
+    def zeros_put():
+        return torch.zeros((n_slots, S.shape[0]), device=dev).index_put_(
+            (dst,), rows)
+    pour_lib_ms, pour_fill_ms = cuda_ms(put, 20), cuda_ms(zeros_put, 20)
+    lib_dev, fill_dev = device_ms(put), device_ms(zeros_put)
+    want = pour_plain(cs.S, cs.row_starts, gs, C)
+    if not torch.equal(lib_out[:, :-1].T, want[0]) or \
+            not torch.equal(zeros_put()[:, :-1].T, want[0]):
         raise AssertionError("pour: index_put_ disagrees with plain")
-    pour_bound = bound(nbytes(S) + nbytes(*got), 0)
-    print(f"K2 pour: bit-exact vs plain (out, live, n_unrouted); "
-          f"{pour_ms:.4f} ms/call vs plain {pour_plain_ms:.4f} ms/call, "
-          f"index_put_ {pour_lib_ms:.4f} ms/call; bound "
-          f"{pour_bound[0]:.4f} ms ({pour_bound[1]})")
-    del lib_out, rows, dst, placed
+    pour_bound = bound(nbytes(S) + nbytes(*want[:2]), 0)
+    print(f"K2 pour per 500k build: {pour_ms:.4f} ms/call (device "
+          f"{pour_dev:.4f}, torch.profiler) vs plain {pour_plain_ms:.4f} "
+          f"ms/call; index_put_ alone {pour_lib_ms:.4f} ms/call (device "
+          f"{lib_dev:.4f}), torch.zeros + index_put_ {pour_fill_ms:.4f} "
+          f"ms/call (device {fill_dev:.4f}); bound {pour_bound[0]:.4f} ms "
+          f"({pour_bound[1]}), {100 * pour_bound[0] / pour_dev:.1f} % of "
+          f"the device time")
+    ptxas_report(["pour_kernel"])
+    del lib_out, rows, dst, placed, want, S, cs
 
     # ---- K1: lattice pair kernel against its plain version ---------------
     lay = lattice_build(X, old_v, N_CELLS, cube, gs, C, engine.extras_cap)
@@ -772,7 +852,8 @@ def main():
     launches.update(sorting_slices(dev))
 
     # ---- the 100k growth_w_wall path: K5, the small slice, the slice -----
-    k5 = gabriel_kernel_check(dev)
+    k5, pour_err100k = gabriel_kernel_check(dev)
+    pour_err = max(pour_err, pour_err100k)
     gabriel_gpu_vs_cpu(dev)
     launches["gabriel_pair"] = growth_w_wall_slice(dev)["gabriel_pair"]
 
@@ -781,18 +862,19 @@ def main():
          "source": "yalla_tpu_torch/csrc/pour.cu",
          "replaces": "yalla_tpu/ops/lattice_pour.py:244",
          "launches": launches["pour"], "max_abs_err": pour_err,
-         "ms": pour_ms, "plain_ms": pour_plain_ms,
+         "ms": pour_ms, "device_ms": pour_dev, "plain_ms": pour_plain_ms,
          "bound_ms": pour_bound[0], "bound_by": pour_bound[1],
-         "library_ms": pour_lib_ms},
+         "library_ms": pour_lib_ms, "library_with_fill_ms": pour_fill_ms},
         {"name": "lattice_pair", "route": "cuda",
          "source": "yalla_tpu_torch/csrc/lattice_pair.cu",
          "replaces": "yalla_tpu/ops/lattice_pallas.py:672",
          "launches": launches["lattice_pair"], "max_abs_err": pair_err,
-         "ms": pair_ms, "plain_ms": pair_plain_ms,
+         "ms": pair_ms, "device_ms": sum(pair_dev.values()),
+         "plain_ms": pair_plain_ms,
          "bound_ms": pair_bound[0], "bound_by": pair_bound[1],
          "library_ms": None},
     ]
-    for name, src, tpu, (err, ms, plain_ms, bound_ms, bound_by) in (
+    for name, src, tpu, (err, ms, plain_ms, bound_ms, bound_by, dev_ms) in (
             ("central_pair", "central_pair.cu", "central_mxu.py:268",
              sort_k["central_pair"]),
             ("tile_pair", "tile_pair.cu", "tile_pallas.py:118",
@@ -803,7 +885,8 @@ def main():
                         "source": f"yalla_tpu_torch/csrc/{src}",
                         "replaces": f"yalla_tpu/ops/{tpu}",
                         "launches": launches[name], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms,
+                        "ms": ms, "device_ms": dev_ms,
+                        "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
     print(json.dumps({"kernels": kernels}))

@@ -23,7 +23,9 @@ from yalla_tpu.solvers import TileEngine as JTileEngine, \
     heun_steps as j_heun_steps
 from yalla_tpu_torch.dtypes import Float3, make_pt
 from yalla_tpu_torch.interop import pt_from_numpy
-from yalla_tpu_torch.ops.central_mxu import (CENTRAL_SENTINEL, central_force,
+from yalla_tpu_torch.models import sorting as S
+from yalla_tpu_torch.ops.central_mxu import (CENTRAL_SENTINEL, _kernel_spec,
+                                             central_force,
                                              central_pairwise_mxu,
                                              central_pairwise_plain)
 from yalla_tpu_torch.ops.common import (friction_on_background,
@@ -190,3 +192,40 @@ def test_central_plain_padding_at_sentinel():
             assert torch.equal(p[:n], q[:n])
     assert torch.equal(a[1][:n], b[1][:n])
     assert CENTRAL_SENTINEL == 1e4
+
+
+def test_kernel_spec_takes_the_aux_functor():
+    """The force with the ``nbs`` aux runs on the card through the
+    functor that sums it; a force whose aux differs from its functor's is
+    refused."""
+    cf = central_adhesion(aux={"nbs": _nbs})
+    cf.cuda_functor = ("sorting_adhesion_central_nbs", S.Params())
+    spec, params = _kernel_spec(cf, friction_w_neighbour, [2])
+    assert spec["aux"] == ("nbs",) and params.r_max == R_MAX
+    # the model's own declaration is the same functor
+    model = S.make_adhesion_central(S.Params(), count_neighbours=True)
+    assert model.cuda_functor[0] == "sorting_adhesion_central_nbs"
+    assert _kernel_spec(model, friction_w_neighbour, [2])[0] is spec
+    for aux, functor in (({"nbs": _nbs}, "sorting_adhesion_central"),
+                         (None, "sorting_adhesion_central_nbs"),
+                         ({"nbs": _nbs, "twice": _nbs},
+                          "sorting_adhesion_central_nbs")):
+        bad = central_adhesion(aux=aux)
+        bad.cuda_functor = (functor, S.Params())
+        with pytest.raises(ValueError, match="aux channels"):
+            _kernel_spec(bad, friction_w_neighbour, [2])
+
+
+def test_sorting_adhesion_counts_neighbours_as_jax():
+    """``make_adhesion_central(count_neighbours=True)`` on the plain path
+    against JAX's kernel (interpret mode) with test_central.py's ``nbs``
+    aux: the neighbour count exact."""
+    n, n_pad = 300, 384
+    (jX, jov), (X, ov) = _both(n, n_pad)
+    j = j_mxu(j_central(aux={"nbs": _j_nbs}), j_friction, jX, jov,
+              jnp.int32(n))
+    force = S.make_adhesion_central(S.Params(), count_neighbours=True)
+    t = central_pairwise_mxu(force, friction_w_neighbour,
+                             pt_from_numpy(S.Cell, jX, device="cpu"), ov, n)
+    assert set(t[3]) == {"nbs"}
+    _assert_sums(j, t, n)

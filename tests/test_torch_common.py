@@ -142,7 +142,7 @@ def test_entry_points_default_to_the_card(name):
 def test_kernel_wrappers_refuse_other_devices_and_forces():
     S = torch.zeros((3, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        pour_pallas(S, 64)
+        pour_pallas(S, torch.zeros(5, dtype=torch.int32), 4, 1)
 
     def plain_force(Xi, r, dist, i, j):
         return Xi

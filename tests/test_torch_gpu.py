@@ -57,19 +57,82 @@ def cuda():
     return torch.device("cuda")
 
 
-def test_pour_kernel_matches_plain(cuda):
+def pour_input(grid, C, cid, n_pad, seed, K=5):
+    """A cube-sorted pour input in numpy: ``K - 1`` random channels and the
+    target slot of each entry of the sorted cube ids ``cid`` (rank < C in
+    its cube, else ``DST_SENTINEL``; rows past ``len(cid)`` too), and the
+    first sorted position of each (z, y) row of cubes."""
+    gx, gy, gz = grid
+    rng = np.random.default_rng(seed)
+    cid = np.sort(np.asarray(cid, np.int64))
+    n = len(cid)
+    first = np.r_[True, cid[1:] != cid[:-1]] if n else np.zeros(0, bool)
+    rank = np.arange(n) - np.maximum.accumulate(
+        np.where(first, np.arange(n), 0))
+    S = rng.random((K, n_pad), np.float32)
+    S[-1] = DST_SENTINEL
+    S[-1, :n] = np.where(rank < C, cid * C + rank, DST_SENTINEL)
+    row_starts = np.searchsorted(cid, np.arange(gy * gz + 1) * gx)
+    return S, row_starts.astype(np.int32)
+
+
+def pour_cases():
+    """Cube-sorted pour inputs by name: (grid, C, S, row_starts, expected
+    n_unrouted)."""
     rng = np.random.default_rng(0)
-    n_pad, n_slots = 8192, 16 ** 3 * 8
-    S = rng.random((5, n_pad), np.float32)
-    dst = rng.permutation(n_slots)[:n_pad].astype(np.float32)
-    dst[rng.random(n_pad) < 0.2] = DST_SENTINEL
-    S[-1] = dst
+    g16 = (16, 16, 16)
+    cases = {
+        # a scattered and a clustered lattice (overflowing cubes), as
+        # tests/test_pour.py makes them
+        "scattered": (g16, 8, rng.choice(16 ** 3, 6000)),
+        "clustered": (g16, 8, rng.choice(16 ** 3 // 7, 6000) * 7),
+        # one half-full row and one full row, the rest empty
+        "empty_and_full_rows": (g16, 8, np.r_[
+            np.repeat(np.arange(17 * 16, 18 * 16), 4),
+            np.repeat(np.arange(100 * 16, 101 * 16), 8)]),
+        # 3000 entries in one row of 128 slots
+        "crowded_row": (g16, 8, rng.choice(np.arange(5 * 16, 6 * 16), 3000)),
+        # rows of 5120 slots, wider than a block's map of 4096
+        "wide_rows": ((640, 2, 2), 8, rng.choice(640 * 4, 6000)),
+        "no_live_cell": (g16, 8, np.zeros(0, np.int64)),
+        # a row width gx * C = 33, no multiple of 4
+        "ragged": ((11, 11, 11), 3, rng.choice(11 ** 3, 3000)),
+    }
+    out = {k: (grid, C, *pour_input(grid, C, cid, 8192, seed=1), 0)
+           for k, (grid, C, cid) in cases.items()}
+    # one entry moved to a free slot of another row, and the window of the
+    # last row cut short by one placed entry: two entries not placed
+    grid, C, S, rs, _ = out["scattered"]
+    S, rs = S.copy(), rs.copy()
+    placed = np.flatnonzero(S[-1] < DST_SENTINEL)
+    free = np.setdiff1d(np.arange(16 ** 3 * 8), S[-1, placed])
+    S[-1, placed[0]] = free[free >= 8 * 16 * 8][0]
+    assert placed[-1] == rs[-1] - 1
+    rs[-1] -= 1
+    out["misrouted"] = (grid, C, S, rs, 2)
+    return out
+
+
+POUR_CASES = pour_cases()
+
+
+@pytest.mark.parametrize("case", list(POUR_CASES))
+def test_pour_kernel_matches_plain(cuda, case):
+    """K2 bit-exact against its plain version on cube-sorted inputs (+0.0
+    in empty slots, live exactly 0.0 or 1.0), n_unrouted equal."""
+    grid, C, S, row_starts, unrouted = POUR_CASES[case]
     S = torch.as_tensor(S, device=cuda)
+    row_starts = torch.as_tensor(row_starts, device=cuda)
     before = pour_pallas.launches
-    got = pour_pallas(S, n_slots)
+    got = pour_pallas(S, row_starts, grid, C)
     assert pour_pallas.launches == before + 1
-    for a, b in zip(got, pour_plain(S, n_slots)):
-        assert torch.equal(a, b)
+    want = pour_plain(S, row_starts, grid, C)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(got[2]) == unrouted
+    # the same bits: no -0.0 in an empty slot
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert set(got[1].unique().tolist()) <= {0.0, 1.0}
 
 
 def _layout(device):
@@ -284,16 +347,28 @@ def test_tile_kernel_matches_plain(cuda, functor, n, n_pad):
     _assert_sums(_rows(got, n), _rows(want, n), exact_aux=exact)
 
 
+# K4 edge shapes (n, n_pad, count neighbours): below one tile of j and
+# one block of i, n no multiple of the split and n_pad no multiple of 128,
+# the 5k configuration, with and without the ``nbs`` aux
+CENTRAL_CASES = [(50, 64, False), (900, 1000, False), (900, 1000, True),
+                 (127, 200, True), (5000, 5120, True)]
+
+
+@pytest.mark.parametrize("n,n_pad,nbs", CENTRAL_CASES)
 @pytest.mark.parametrize("friction", [friction_w_neighbour,
                                       friction_on_background])
-def test_central_kernel_matches_plain(cuda, friction):
-    X, ov, n = _sorting_ball(cuda)
-    force = S.make_adhesion_central(S.Params())
+def test_central_kernel_matches_plain(cuda, friction, n, n_pad, nbs):
+    """K4 against its plain version: sum_f and the neighbour count
+    exact."""
+    X, ov, n = _sorting_ball(cuda, n, n_pad)
+    force = S.make_adhesion_central(S.Params(), count_neighbours=nbs)
     before = central_pairwise_mxu.launches
     got = central_pairwise_mxu(force, friction, X, ov, n)
     want = central_pairwise_plain(force, friction, X, ov, n)
     assert central_pairwise_mxu.launches == before + 1
-    _assert_sums(_rows(got, n), _rows(want, n), atol=1e-4)
+    assert set(got[3]) == ({"nbs"} if nbs else set())
+    _assert_sums(_rows(got, n), _rows(want, n), exact_aux=("nbs",),
+                 atol=1e-4)
 
 
 def test_all_pairs_kernels_refuse_force_without_functor(cuda):

@@ -2,11 +2,14 @@
 
 ``lattice_plan`` (K1, ``csrc/lattice_pair.cu``) cuts the cube lattice into
 bricks whose halo and sums fit the H100's shared memory; ``tile_plan``
-(K3, ``csrc/tile_pair.cu``) splits the all-pairs j range across blocks.
-Both are plain Python, so their arithmetic is held here: every cube in
-exactly one brick, every j in exactly one split, shared memory and
-scratch as the kernels lay them out.  Also: the plain lattice pass on an
-empty lattice (K1's empty edge shape).
+(K3, ``csrc/tile_pair.cu``) splits the all-pairs j range across blocks,
+and ``central_plan`` (K4, ``csrc/central_pair.cu``) does the same for
+the central kernel's rows and sums; ``pour_plan`` (K2, ``csrc/pour.cu``)
+gives each block whole rows of slots.  All are plain Python, so their
+arithmetic is held here: every cube in exactly one brick, every j in
+exactly one split, every row in one block, shared memory and scratch as
+the kernels lay them out.  Also: the plain lattice pass on an empty
+lattice (K1's empty edge shape).
 """
 import itertools
 
@@ -16,12 +19,14 @@ import torch
 
 from yalla_tpu_torch.dtypes import Float3
 from yalla_tpu_torch.models import branching as B
+from yalla_tpu_torch.ops.central_mxu import CENTRAL_ROWS, central_plan
 from yalla_tpu_torch.ops.common import friction_w_neighbour
 from yalla_tpu_torch.ops.lattice_pallas import (BRICKS, SMEM_BUDGET,
                                                 SMEM_MAX,
                                                 lattice_pairwise_plain,
                                                 lattice_plan,
                                                 lattice_smem_bytes)
+from yalla_tpu_torch.ops.lattice_pour import BLOCK_SLOTS, pour_plan
 from yalla_tpu_torch.ops.lattice_xla import lattice_build
 from yalla_tpu_torch.ops.tile_pallas import (BLOCKS_PER_SM, TILE_J,
                                              TILE_THREADS, tile_plan)
@@ -111,7 +116,9 @@ def test_tile_plan_fills_the_card_at_5k():
     for rows, sums in ((2, 13), (4, 7)):
         plan = tile_plan(5000, 5120, rows, sums, H100_SMS)
         blocks = plan.blocks[0] * plan.blocks[1]
-        assert BLOCKS_PER_SM * H100_SMS <= blocks <= 8 * H100_SMS, plan
+        # at most BLOCKS_PER_SM blocks on any SM, at least one less on none
+        assert (BLOCKS_PER_SM - 1) * H100_SMS < blocks <= \
+            BLOCKS_PER_SM * H100_SMS, plan
         assert tile_plan(5000, 5120, rows, sums, H100_SMS) is plan
     # fewer SMs, fewer splits
     assert tile_plan(5000, 5120, 4, 7, 16).splits < \
@@ -120,6 +127,53 @@ def test_tile_plan_fills_the_card_at_5k():
         tile_plan(10, 5, 2, 13, H100_SMS)
     with pytest.raises(ValueError):
         tile_plan(10, 20, 2, 13, 0)
+
+
+def _central_cases():
+    for n in (0, 1, 50, 127, 900, 5000):
+        for n_pad in sorted({n, 64, 1000, -(-n // 128) * 128, 5120}):
+            if n <= n_pad:
+                for n_aux in (0, 1):
+                    yield n, n_pad, n_aux
+
+
+@pytest.mark.parametrize("n,n_pad,n_aux", list(_central_cases()))
+def test_central_plan_splits_j_once(n, n_pad, n_aux):
+    """K4's plan: R i-points a thread over every row, every j < n in
+    exactly one split, no split empty, scratch [S, 8 + aux, n_pad]."""
+    plan = central_plan(n, n_pad, n_aux, H100_SMS)
+    assert plan.rows == CENTRAL_ROWS
+    i_blocks, splits = plan.blocks
+    per_block = TILE_THREADS * CENTRAL_ROWS
+    assert i_blocks == -(-n_pad // per_block)
+    ranges = [(s * plan.chunk, min(n, (s + 1) * plan.chunk))
+              for s in range(splits)]
+    covered = list(itertools.chain.from_iterable(range(*r) for r in ranges))
+    assert covered == list(range(n))
+    assert all(hi > lo for lo, hi in ranges) or (n == 0 and splits == 1)
+    assert plan.scratch == (splits, 8 + n_aux, n_pad)
+
+
+def test_central_plan_fills_the_card_at_5k():
+    plan = central_plan(5000, 5120, 0, H100_SMS)
+    assert plan.blocks == (10, 52)           # 520 blocks on 132 SMs
+    # the aux channels change the scratch, not the split
+    assert central_plan(5000, 5120, 1, H100_SMS).blocks == plan.blocks
+
+
+@pytest.mark.parametrize("grid,capacity", LATTICES)
+def test_pour_plan_gives_each_row_one_block(grid, capacity):
+    """K2's plan: whole rows a block, every row in exactly one block
+    (block b owns rows [b * rows, (b + 1) * rows)), at most BLOCK_SLOTS
+    slots a block unless one row is wider."""
+    gx, gy, gz = (grid,) * 3 if isinstance(grid, int) else grid
+    n_rows, W = gy * gz, gx * capacity
+    rows, blocks = pour_plan(n_rows, W)
+    assert (blocks - 1) * rows < n_rows <= blocks * rows
+    assert rows == 1 or rows * W <= BLOCK_SLOTS
+    # the 500k lattice: 2 rows of 512 slots a block; the 100k lattice: 1
+    assert pour_plan(64 * 64, 64 * 8) == (2, 2048)
+    assert pour_plan(48 * 48, 48 * 16) == (1, 2304)
 
 
 def test_plain_lattice_pass_on_an_empty_lattice():

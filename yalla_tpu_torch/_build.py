@@ -36,8 +36,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 SIGNATURES = {
-    # S, K, n_pad, n_slots, out, live, stream
-    "yalla_pour": [_P, _I, _L, _L, _P, _P, _P],
+    # S, K, n_pad, row_starts, n_rows, W, rows_per_block, blocks, out,
+    # live, unrouted, stream
+    "yalla_pour": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # chans[12], occ, echans[12], ecube, eorder, estart, E_cap,
     # gx, gy, gz, C, cube_size, bz, by, bx, smem, params[10], out, eout,
     # stream
@@ -49,9 +50,11 @@ SIGNATURES = {
     "yalla_tile_pair_branching": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "yalla_tile_pair_sorting": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # Ri, Cj, n, n_pad, n_fields, n_channels, arities, friction, params,
-    # out, stream
-    "yalla_central_pair_sorting": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _P,
-                                   _P],
+    # rows, S, chunk, part, out, stream
+    "yalla_central_pair_sorting": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _I,
+                                   _I, _I, _P, _P, _P],
+    "yalla_central_pair_sorting_nbs": [_P, _P, _I, _I, _I, _I, _P, _I, _P,
+                                       _I, _I, _I, _P, _P, _P],
     # chans[kFields + 3], pid, slot_of, n_pad, gx, gy, gz, C, cube_size,
     # gc2, NC, params, out, stream
     "yalla_gabriel_pair_wall_relu": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F,

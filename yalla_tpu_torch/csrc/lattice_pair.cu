@@ -74,12 +74,14 @@
 
 #include <cmath>
 
+#include "cp_async.cuh"
 #include "forces.cuh"
 
 namespace {
 
 using yalla::BranchingForce;
 using yalla::BranchingParams;
+using yalla::cp_async4;
 using yalla::pair_d2;
 using yalla::pair_dist;
 using Cell = BranchingForce::Cell;
@@ -178,14 +180,6 @@ __device__ __forceinline__ void visit(const Force& f, const Cell& a,
   if (!(dist < cutoff)) return;
   f.pair(a, load_cell(ch, j), dist, __ldg(ch.p[9] + j), __ldg(ch.p[10] + j),
          __ldg(ch.p[11] + j), acc);
-}
-
-// 4-byte asynchronous copy from device memory to shared memory
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned sa = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa),
-               "l"(gmem)
-               : "memory");
 }
 
 // The staged cell at place ``i`` of rl; its slot id in ``e``

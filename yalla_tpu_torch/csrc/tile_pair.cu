@@ -21,7 +21,7 @@
 //   template parameter per functor: 4 for the 7-sum sorting functor, 2 for
 //   the 13-sum branching functor with its 9 fields), and the j range
 //   [s * chunk, min(n, (s + 1) * chunk)).  ops/tile_pallas.py::tile_plan
-//   picks S so that the blocks fill the SMs about four times over.
+//   picks S so that no SM holds more than four blocks and most hold four.
 // * The j range streams through two shared-memory tiles of kTileJ points
 //   (every channel and old_v), filled by cp.async while the other tile is
 //   consumed.  Every read of a j value from shared memory (a broadcast)
@@ -42,9 +42,14 @@
 
 #include <cstring>
 
+#include "cp_async.cuh"
 #include "forces.cuh"
 
 namespace {
+
+using yalla::cp_async4;
+using yalla::cp_async_commit;
+using yalla::cp_async_wait;
 
 constexpr int kThreads = 128;  // threads per block
 constexpr int kTileJ = 64;     // j points per shared-memory tile
@@ -60,22 +65,6 @@ __device__ __forceinline__ Cell as_cell(const float (&v)[N]) {
   Cell c;
   memcpy(&c, v, sizeof(Cell));
   return c;
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Start the copy of j in [j0, min(j0 + kTileJ, j_hi)) of every channel

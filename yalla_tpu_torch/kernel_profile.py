@@ -1,5 +1,5 @@
-"""Device time of the lattice and all-pairs pair kernels (K1, K3) and of the
-steps around them, by ``torch.profiler``, on one GPU.
+"""Device time of the port's kernels K1 to K4 and of the steps around
+them, by ``torch.profiler``, on one GPU.
 
     python3 yalla_tpu_torch/kernel_profile.py [ROOT ...]
 
@@ -10,13 +10,27 @@ one JSON line:
 
 * ``k1``: device ms per pass of each K1 kernel on the settled 500k
   branching state at ``bench_state.json`` ``branching_500000``;
+* ``k2``: device ms per 500k build of the pour wrapper (``busy_ms``: every
+  kernel and copy it launches, ``kernels`` of them) and of the pour kernel
+  itself (``pour_kernel``), on the same state's cube sort;
 * ``k3``: device ms per pass of each K3 kernel on the settled 5k sorting
   state with the hand-written adhesion;
-* ``step_500k`` and ``step_5k_tile``: per step of the 500k slice and of the
-  5k slice on ``TileEngine(pallas=True)``, the device busy ms (the sum of
-  every kernel's and copy's device time in a profiled window, over its
-  steps), the device kernels launched, and the wall ms of each of
-  ``WALL_WINDOWS`` unprofiled windows.
+* ``k4``: device ms per pass of each K4 kernel on the same state with the
+  central adhesion;
+* ``step_500k``, ``step_5k_tile`` and ``step_5k_central``: per step of the
+  500k slice and of the 5k slice on ``TileEngine(pallas=True)`` and
+  ``TileEngine(mxu=True)``, the device busy ms (the sum of every kernel's
+  and copy's device time in a profiled window, over its steps), the
+  device kernels launched, and the wall ms of each of ``WALL_WINDOWS``
+  unprofiled windows.
+
+    python3 yalla_tpu_torch/kernel_profile.py --plans [ROOT]
+
+prints instead one JSON line of the launch plans around the ones the
+wrappers take: the pour's device ms per build at 1, 2, 4 and 8 rows of
+slots per block (``pour_plan``) on the 500k and the 100k growth_w_wall
+builds, and the central kernels' device ms per 5k pass at 26, 52, 53 and
+66 splits of j (``central_plan``).
 
 A root named more than once runs each time, so two trees compare in one
 call in turns: ``A B A B A B``.  Given exactly two trees in alternation,
@@ -40,6 +54,7 @@ if Path(sys.path[0]).resolve() == Path(__file__).resolve().parent:
 
 K1_KERNELS = ("lattice_pair_kernel", "extras_pair_kernel")
 K3_KERNELS = ("tile_pair_kernel", "tile_reduce_kernel")
+K4_KERNELS = ("central_pair_kernel", "central_reduce_kernel")
 WALL_WINDOWS = 5
 
 
@@ -53,30 +68,39 @@ def card():
 
 def device_window(fn, calls):
     """Profile ``calls`` calls of ``fn`` after one warm-up; returns
-    ({kernel or op key: device ms per call}, device ms per call of all
-    kernels and copies, device kernels per call).  Raises if the profiler
-    shows no device time."""
+    ({kernel or copy name: device ms per call}, device ms per call of all
+    kernels and copies, device kernels per call).  Only the device's own
+    events count: a host op's row carries the device time of the kernels
+    it launched, which their own rows already hold, and CUPTI's buffer
+    requests are the profiler's.  A window whose device events did not
+    arrive (CUPTI drops one now and then) is taken again, twice at most;
+    raises if the profiler still shows no device time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    per, busy, kernels = {}, 0.0, 0
-    for e in prof.key_averages():
-        self_us = getattr(e, "self_device_time_total", None)
-        if self_us is None:
-            self_us = e.self_cuda_time_total
-        if self_us > 0:
-            per[e.key] = self_us / 1e3 / calls
-            busy += self_us / 1e3 / calls
-            kernels += e.count
-    if not busy > 0:
-        raise RuntimeError("torch.profiler shows no device time")
-    return per, busy, kernels / calls
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        per, busy, kernels = {}, 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CPU or \
+                    e.key == "Activity Buffer Request":
+                continue
+            self_us = e.self_device_time_total
+            if self_us > 0:
+                per[e.key] = self_us / 1e3 / calls
+                busy += self_us / 1e3 / calls
+                kernels += e.count
+        if busy > 0:
+            return per, busy, kernels / calls
+        print("kernel_profile: a profiler window without device events, "
+              "taken again", file=sys.stderr)
+    raise RuntimeError("torch.profiler shows no device time")
 
 
 def named(per, names):
@@ -113,8 +137,10 @@ def _one(root):
     from yalla_tpu_torch.models import branching as B
     from yalla_tpu_torch.models import sorting as S
     from yalla_tpu_torch.ops.common import friction_w_neighbour
+    from yalla_tpu_torch.ops.central_mxu import central_pairwise_mxu
     from yalla_tpu_torch.ops.lattice_pallas import lattice_pairwise_pallas
-    from yalla_tpu_torch.ops.lattice_xla import lattice_build
+    from yalla_tpu_torch.ops.lattice_pour import pour_pallas
+    from yalla_tpu_torch.ops.lattice_xla import lattice_build, sort_by_cube
     from yalla_tpu_torch.ops.tile_pallas import tile_pairwise_pallas
     from yalla_tpu_torch.solvers import Solution, TileEngine, augment
     dev = torch.device("cuda")
@@ -149,7 +175,17 @@ def _one(root):
         capacity=C, z_block=engine.z_block,
         extras_block_cap=engine.extras_block_cap), 10)
     out["k1"] = named(per, K1_KERNELS)
-    del X, ov, lay
+    cs = sort_by_cube(X, ov, 500_000, cube, gs, C)
+    if hasattr(cs, "row_starts"):
+        def pour():
+            pour_pallas(cs.S, cs.row_starts, gs, C)
+    else:            # trees whose pour took (S, n_slots)
+        def pour():
+            pour_pallas(cs.S, gs[0] * gs[1] * gs[2] * C)
+    per, busy, kernels = device_window(pour, 20)
+    out["k2"] = {"busy_ms": busy, "kernels": kernels,
+                 **named(per, ("pour_kernel",))}
+    del X, ov, lay, cs
     sol = solution(settled, 500_000, engine, cube, B.Cell)
     dt = B.Params().dt
 
@@ -169,15 +205,80 @@ def _one(root):
     per, _, _ = device_window(lambda: tile_pairwise_pallas(
         adhesion, friction_w_neighbour, X, ov, 5000), 20)
     out["k3"] = named(per, K3_KERNELS)
-    sol = solution(settled5k, 5000, TileEngine(pallas=True), sp.r_max,
-                   S.Cell, n_pad=5120)
+    central = S.make_adhesion_central(sp)
+    per, _, _ = device_window(lambda: central_pairwise_mxu(
+        central, friction_w_neighbour, X, ov, 5000), 20)
+    out["k4"] = named(per, K4_KERNELS)
+    for tag, engine, force, names in (
+            ("tile", TileEngine(pallas=True), adhesion, K3_KERNELS),
+            ("central", TileEngine(mxu=True), central, K4_KERNELS)):
+        sol = solution(settled5k, 5000, engine, sp.r_max, S.Cell,
+                       n_pad=5120)
 
-    def step5k():
-        sol.take_steps(1, sp.dt, adhesion)
-    per, busy, kernels = device_window(step5k, 20)
-    out["step_5k_tile"] = {"busy_ms": busy, "kernels": kernels,
-                           "k3_ms": sum(named(per, K3_KERNELS).values()),
-                           "wall_ms": _wall_ms(step5k, 100)}
+        def step5k():
+            sol.take_steps(1, sp.dt, force)
+        per, busy, kernels = device_window(step5k, 20)
+        out[f"step_5k_{tag}"] = {
+            "busy_ms": busy, "kernels": kernels,
+            "kernel_ms": sum(named(per, names).values()),
+            "wall_ms": _wall_ms(step5k, 100)}
+    return out
+
+
+def _plans(root):
+    """Device ms of K2 and K4 at other launch plans than their own."""
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    from unittest import mock
+
+    import torch
+    from yalla_tpu_torch.interop import (bench_config, bench_engine,
+                                         load_settled)
+    from yalla_tpu_torch.models import branching as B
+    from yalla_tpu_torch.models import growth_w_wall as W
+    from yalla_tpu_torch.models import sorting as S
+    from yalla_tpu_torch.ops import central_mxu, lattice_pour
+    from yalla_tpu_torch.ops.common import friction_w_neighbour, grid_dims
+    from yalla_tpu_torch.ops.lattice_xla import sort_by_cube
+    from yalla_tpu_torch.ops.tile_pallas import TilePlan
+    from yalla_tpu_torch.solvers import Solution
+    dev = torch.device("cuda")
+    out = {"root": str(root), "card": card(), "k2": {}, "k4": {}}
+    cfg = bench_config(root / "bench_state.json", "branching_500000")
+    engine = bench_engine(cfg)
+    X, ov = load_settled(root / ".bench_cache" /
+                         "settled_branching_500000_s0_v1.npz", B.Cell, dev)
+    builds = {"500k": (sort_by_cube(X, ov, 500_000, float(cfg["cube"]),
+                                    engine.grid_size, engine.capacity),
+                       engine.grid_size, engine.capacity)}
+    h, n = W.half_space_tissue(
+        100_000, Solution(W.Float3, 100_000, device=dev).n_pad)
+    X = W.Float3(*(torch.as_tensor(h[f], device=dev) for f in "xyz"))
+    builds["100k"] = (sort_by_cube(X, X, n, W.r_max, 48, 16), 48, 16)
+    for tag, (cs, grid, C) in builds.items():
+        gx, gy, gz = grid_dims(grid)
+        ms = {}
+        for rows in (1, 2, 4, 8):
+            plan = (rows, -(-gy * gz // rows))
+            with mock.patch.object(lattice_pour, "pour_plan",
+                                   lambda *_, plan=plan: plan):
+                ms[f"{rows * gx * C} slots"] = device_window(
+                    lambda: lattice_pour.pour_pallas(cs.S, cs.row_starts,
+                                                     grid, C), 20)[1]
+        out["k2"][tag] = ms
+    X, ov = load_settled(root / ".bench_cache" /
+                         "settled_sorting_p5120_5000_s0_v1.npz", S.Cell, dev)
+    central = S.make_adhesion_central(S.Params())
+    for splits in (26, 52, 53, 66):
+        chunk = -(-5000 // splits)
+        plan = TilePlan(4, splits, chunk, (10, splits), (splits, 8, 5120))
+        with mock.patch.object(central_mxu, "central_plan",
+                               lambda *_, plan=plan: plan):
+            per, _, _ = device_window(lambda: central_mxu.
+                                      central_pairwise_mxu(
+                                          central, friction_w_neighbour,
+                                          X, ov, 5000), 20)
+        out["k4"][f"{splits} splits"] = sum(named(per, K4_KERNELS).values())
     return out
 
 
@@ -185,11 +286,15 @@ def _metrics(run):
     """{metric: list of values} of one run; one value for device times,
     the windows for wall times."""
     return {"k1_ms": [sum(run["k1"].values())],
+            "k2_ms": [run["k2"]["busy_ms"]],
             "k3_ms": [sum(run["k3"].values())],
+            "k4_ms": [sum(run["k4"].values())],
             "busy_500k_ms": [run["step_500k"]["busy_ms"]],
             "busy_5k_tile_ms": [run["step_5k_tile"]["busy_ms"]],
+            "busy_5k_central_ms": [run["step_5k_central"]["busy_ms"]],
             "wall_500k_ms": run["step_500k"]["wall_ms"],
-            "wall_5k_tile_ms": run["step_5k_tile"]["wall_ms"]}
+            "wall_5k_tile_ms": run["step_5k_tile"]["wall_ms"],
+            "wall_5k_central_ms": run["step_5k_central"]["wall_ms"]}
 
 
 def verdicts(first, second):
@@ -209,6 +314,10 @@ def verdicts(first, second):
 
 
 def main(argv):
+    if argv[:1] == ["--plans"]:
+        print(json.dumps(_plans(argv[1] if len(argv) > 1 else
+                                Path(__file__).resolve().parent.parent)))
+        return
     if len(argv) >= 2 and argv[0] == "--one":
         import torch
         if not torch.cuda.is_available():

@@ -12,7 +12,8 @@ and 3 between types, inside ``r_max``, repulsive inside ``r_min``.
 Each force declares the CUDA functor that implements it:
 ``make_adhesion`` the tile kernel's ``sorting_adhesion``
 (``csrc/forces.cuh``), ``make_adhesion_central`` the central kernel's
-``sorting_adhesion_central`` (``csrc/central_pair.cu``).
+``sorting_adhesion_central`` or, counting neighbours,
+``sorting_adhesion_central_nbs`` (``csrc/central_pair.cu``).
 """
 from __future__ import annotations
 
@@ -52,23 +53,29 @@ def make_adhesion(p: Params):
     return adhesion
 
 
-def make_adhesion_central(p: Params):
+def make_adhesion_central(p: Params, count_neighbours=False):
     """The same physics as a ``central_force`` (``bench.py:761-775``):
     strength{same 0: 1, same 1: 9, mixed: 3} = 1 + 2 t_i + 2 t_j
-    + 4 t_i t_j is bilinear in the type bits."""
+    + 4 t_i t_j is bilinear in the type bits.  With ``count_neighbours``
+    the force also sums the aux channel ``nbs``, the neighbours within
+    ``r_max`` (``tests/test_central.py:95-97``)."""
     def coef(dist, Si, Sj, strength):
         a = torch.clamp(p.r_max - dist, min=0.0)     # 0 past the cutoff
         b = a + 2.0 * (p.r_min - dist)
         rs = torch.rsqrt(torch.clamp(dist * dist, min=1e-12))
         return strength * (a * b) * rs
 
+    def nbs(dist, Si, Sj, strength):
+        return (dist < p.r_max).to(torch.float32)
+
+    name = "sorting_adhesion_central" + ("_nbs" if count_neighbours else "")
     force = central_force(
         Cell, coef,
         bilinear={"strength": (
             lambda X: (torch.ones_like(X.ctype), 2.0 * X.ctype),
             lambda X: (1.0 + 2.0 * X.ctype, 1.0 + 2.0 * X.ctype))},
-        name="sorting_adhesion_central")
-    force.cuda_functor = ("sorting_adhesion_central", p)
+        aux={"nbs": nbs} if count_neighbours else None, name=name)
+    force.cuda_functor = (name, p)
     return force
 
 

@@ -16,9 +16,10 @@ differential-adhesion strengths, ref examples/sorting.cu:16-28).
   to ``central_pairwise_mxu``.
 * ``central_pairwise_mxu`` is the kernel wrapper: a CUDA tensor goes to
   ``csrc/central_pair.cu``, a CPU tensor to ``central_pairwise_plain``.
-  The kernel evaluates the coefficient as a device functor, so a force
-  declares it (``force.cuda_functor``), and a force without one is
-  refused on the GPU.
+  The kernel evaluates the coefficient and the aux channels as a device
+  functor, so a force declares it (``force.cuda_functor``), and a force
+  without one is refused on the GPU.  Like the all-pairs kernel it splits
+  j across blocks (``tile_pallas.tile_plan``, :func:`central_plan`).
 * ``central_pairwise_plain`` computes the same factored sums in torch.
 
 Coefficient contract (as in the JAX package): ``coef`` returns 0 past its
@@ -36,22 +37,29 @@ import torch
 from .common import (friction_on_background, friction_w_neighbour,
                      split_force_output)
 from .functors import param_array, require
+from .tile_pallas import sm_count, tile_plan
 
 __all__ = ["central_force", "central_pairwise_mxu", "central_pairwise_plain",
-           "CENTRAL_SENTINEL"]
+           "central_plan", "CENTRAL_SENTINEL"]
 
 # poisoned-pair distance: past every physical cutoff, small enough that
 # polynomial coefficients of dist stay finite in f32
 CENTRAL_SENTINEL = 1e4
 
 # coefficient functors of csrc/central_pair.cu: C entry point, the scalar
-# fields and bilinear arities the force must have, its aux channels (the
-# kernel sums none), and the parameter values it takes
+# fields and bilinear arities the force must have, the aux channels it
+# sums, and the parameter values it takes
 CENTRAL_FUNCTORS = {
     "sorting_adhesion_central": dict(
         entry="yalla_central_pair_sorting", fields=(), arities=(2,),
         aux=(), params=("r_max", "r_min")),
+    # the same coefficient with the neighbour count dist < r_max
+    "sorting_adhesion_central_nbs": dict(
+        entry="yalla_central_pair_sorting_nbs", fields=(), arities=(2,),
+        aux=("nbs",), params=("r_max", "r_min")),
 }
+# i-points per thread of csrc/central_pair.cu (its template parameter R)
+CENTRAL_ROWS = 4
 # the friction coefficient the kernel evaluates, by its flag
 _FRICTION_FLAGS = {friction_w_neighbour: 1, friction_on_background: 0}
 # rows of the plain version's pair block ([_I_BLOCK, n_pad] at a time)
@@ -238,6 +246,14 @@ def _kernel_spec(cf, pw_friction, arities):
     return spec, params
 
 
+def central_plan(n, n_pad, n_aux, sms):
+    """Launch plan of the central kernel on a card of ``sms`` streaming
+    multiprocessors: ``tile_plan`` with its ``CENTRAL_ROWS`` i-points per
+    thread and its partial sums (sum_w, sum_wx y z, sum_f, sum_v x y z and
+    the ``n_aux`` aux channels)."""
+    return tile_plan(n, n_pad, CENTRAL_ROWS, 8 + n_aux, sms)
+
+
 def central_pairwise_mxu(cf, pw_friction, X, old_v, n):
     """Central all-pairs wrapper: launches ``csrc/central_pair.cu`` for
     CUDA tensors, runs :func:`central_pairwise_plain` for CPU tensors,
@@ -264,19 +280,23 @@ def central_pairwise_mxu(cf, pw_friction, X, old_v, n):
     spec, params = _kernel_spec(cf, pw_friction, arities)
     Ri = torch.stack(pos + S + a_cols)
     Cj = torch.stack(pos + S + b_cols + list(old_v))
-    out = torch.empty((7, n_pad), dtype=f32, device=dev)
+    plan = central_plan(n, n_pad, len(spec["aux"]), sm_count(dev))
+    part = torch.empty(plan.scratch, dtype=f32, device=dev)
+    out = torch.empty((7 + len(spec["aux"]), n_pad), dtype=f32, device=dev)
     ar = (ctypes.c_int * max(len(arities), 1))(*arities)
     lib = _build.library()
     central_pairwise_mxu.launches += 1
     _build.check(getattr(lib, spec["entry"])(
         Ri.data_ptr(), Cj.data_ptr(), n, n_pad, len(S), len(arities), ar,
-        _FRICTION_FLAGS[pw_friction], param_array(spec, params),
-        out.data_ptr(), _build.stream_handle(dev)), "central pair kernel")
+        _FRICTION_FLAGS[pw_friction], param_array(spec, params), plan.rows,
+        plan.splits, plan.chunk, part.data_ptr(), out.data_ptr(),
+        _build.stream_handle(dev)), "central pair kernel")
     zero = torch.zeros_like(X.x)
     vals = {"x": out[0], "y": out[1], "z": out[2]}
     F = cf.Pt(**{f: vals.get(f, zero) for f in cf.Pt._fields})
+    aux = {k: out[7 + a] for a, k in enumerate(spec["aux"])}
     return _add_diagonal(cf, pw_friction, X, old_v, F, out[3],
-                         (out[4], out[5], out[6]), {})
+                         (out[4], out[5], out[6]), aux)
 
 
 central_pairwise_mxu.launches = 0

@@ -72,18 +72,22 @@ class LatticeLayout(NamedTuple):
 
 class CubeSort(NamedTuple):
     """The cube-id sort of one build: the stack the pour places (``S``:
-    the sorted fields, old_v, stable id and target slot), and per sorted
-    entry its stable id, rank in its cube and whether it is active."""
+    the sorted fields, old_v, stable id and target slot), per sorted
+    entry its stable id, rank in its cube and whether it is active, and
+    the first sorted position of each (z, y) row of cubes."""
     S: torch.Tensor           # f32[K, n_pad]
     order: torch.Tensor       # int64[n_pad]
     rank: torch.Tensor        # int64[n_pad]
     live: torch.Tensor        # bool[n_pad]
     slot_sorted: torch.Tensor  # int64[n_pad]; n_slots = not placed
+    row_starts: torch.Tensor  # int32[gy * gz + 1]; last: the active count
 
 
 def sort_by_cube(X, old_v, n, cube_size, grid_size, capacity):
     """Stable sort by cube id; entry of rank ``< capacity`` in its cube
-    targets slot ``cid * C + rank``, the rest ``DST_SENTINEL``."""
+    targets slot ``cid * C + rank``, the rest ``DST_SENTINEL``.  Row ``r``
+    of cubes (ids ``[r * gx, (r + 1) * gx)``) starts at ``row_starts[r]``,
+    found by binary search of its first id in the sorted ids."""
     from .lattice_pour import DST_SENTINEL
     dev = X.x.device
     n_pad = X.x.shape[0]
@@ -103,7 +107,10 @@ def sort_by_cube(X, old_v, n, cube_size, grid_size, capacity):
     dst = torch.where(ok, slot_sorted.to(torch.float32), DST_SENTINEL)
     S = torch.stack([a[order] for a in list(X) + list(old_v)]
                     + [order.to(torch.float32), dst])
-    return CubeSort(S, order, rank, live, slot_sorted)
+    row_starts = torch.searchsorted(
+        sorted_cid, torch.arange(gy * gz + 1, device=dev) * gx,
+        out_int32=True)
+    return CubeSort(S, order, rank, live, slot_sorted, row_starts)
 
 
 def lattice_build(X, old_v, n, cube_size, grid_size, capacity,
@@ -119,14 +126,12 @@ def lattice_build(X, old_v, n, cube_size, grid_size, capacity,
     from .lattice_pour import pour_pallas
     dev = X.x.device
     n_pad = X.x.shape[0]
-    gx, gy, gz = grid_dims(grid_size)
     C = capacity
-    n_slots = gx * gy * gz * C
     nx = len(X)
     n_oob = out_of_grid_mask(X, n, cube_size, grid_size).sum()
-    S, order, rank, live, slot_sorted = sort_by_cube(
+    S, order, rank, live, slot_sorted, row_starts = sort_by_cube(
         X, old_v, n, cube_size, grid_size, capacity)
-    outp, occ, n_unrouted = pour_pallas(S, n_slots)
+    outp, occ, n_unrouted = pour_pallas(S, row_starts, grid_size, C)
     T = type(X)(*outp[:nx])
     Tov = Float3(*outp[nx:nx + 3])
     pid = torch.where(occ > 0.5, outp[nx + 3].to(torch.int64), n_pad)

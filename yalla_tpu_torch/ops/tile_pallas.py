@@ -26,7 +26,7 @@ from .functors import pair_functor, param_array, require, unpack_sums
 from .pairwise_xla import tile_pairwise
 
 __all__ = ["tile_pairwise_pallas", "tile_pairwise_plain", "tile_plan",
-           "TilePlan"]
+           "TilePlan", "sm_count"]
 
 # csrc/tile_pair.cu: threads per block and j points per shared-memory tile
 TILE_THREADS = 128
@@ -50,14 +50,16 @@ class TilePlan(NamedTuple):
 @functools.lru_cache(maxsize=64)
 def tile_plan(n, n_pad, rows, sums, sms):
     """Split the j range of an ``n``-point all-pairs pass over ``n_pad``
-    rows so that the grid holds about ``BLOCKS_PER_SM`` blocks on each of
-    the card's ``sms`` streaming multiprocessors, each split at least one
-    tile of j (none empty)."""
+    rows so that the grid holds at most ``BLOCKS_PER_SM`` blocks on each
+    of the card's ``sms`` streaming multiprocessors, and as close to that
+    as whole splits allow, each split at least one tile of j (none
+    empty).  At most, not about: a fifth block on a few SMs keeps them a
+    quarter longer than the rest, and the pass waits for them."""
     if not 0 <= n <= n_pad or rows < 1 or sums < 1 or sms < 1:
         raise ValueError(f"tile_plan: n {n}, n_pad {n_pad}, rows {rows}, "
                          f"sums {sums}, sms {sms}")
     i_blocks = -(-n_pad // (TILE_THREADS * rows))
-    want = -(-sms * BLOCKS_PER_SM // max(i_blocks, 1))
+    want = sms * BLOCKS_PER_SM // max(i_blocks, 1)
     splits = max(1, min(want, -(-n // TILE_J)))
     chunk = max(1, -(-n // splits))
     splits = max(1, -(-n // chunk))
@@ -68,6 +70,12 @@ def tile_plan(n, n_pad, rows, sums, sms):
 @functools.cache
 def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device):
+    """Streaming multiprocessors of the CUDA ``device``."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def tile_pairwise_plain(pw_int, pw_friction, X, old_v, n):
@@ -98,9 +106,7 @@ def tile_pairwise_pallas(pw_int, pw_friction, X, old_v, n):
         [require(a, (n_pad,), f32, dev, "tile pair kernel: old_v")
          for a in old_v]
     sums = len(spec["dF"]) + len(spec["aux"]) + 4
-    plan = tile_plan(n, n_pad, spec["tile_rows"], sums,
-                     _sm_count(dev.index if dev.index is not None
-                               else torch.cuda.current_device()))
+    plan = tile_plan(n, n_pad, spec["tile_rows"], sums, sm_count(dev))
     part = torch.empty(plan.scratch, dtype=f32, device=dev)
     out = torch.empty((sums, n_pad), dtype=f32, device=dev)
     lib = _build.library()
