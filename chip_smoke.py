@@ -67,17 +67,21 @@ own line:
     of the 100k half-space tissue with the growth_w_wall force and
     friction: the friction sum (kept non-wall pairs) exact, every flag 0
     and equal, F and sum_v within ``compare_sums``'s tolerance; ms per
-    pass of each, and of the lattice build inside them; the kernel's
-    device time; and K2 on that lattice build, bit-exact, with its device
-    time;
+    pass of each, and of the lattice build inside them; its device time
+    (every kernel and fill its wrapper launches after the build),
+    registers and spills; the same comparison at NC 4 on the 2,000-cell
+    tissue, where most points overflow their compact set (the flags
+    equal, the sums equal on the overflowed points and on the rest); and
+    K2 on that lattice build, bit-exact, with its device time;
 11. the small Gabriel slice: 2 steps of the growth_w_wall loop on the
     2,000-cell tissue (gs 16, C 8, NC 20; the protrusion draws made from a
     numpy seed) on the GPU against the same steps on the CPU plain path,
     every field within the reference's ``isclose``;
 12. the 100k growth_w_wall slice: ``Solution`` + ``GabrielEngine(
-    lattice=True, **GABRIEL_100K)`` and ``Links``, ``NG`` steps of ``Links.update`` + ``take_step`` after one
-    warm-up step, every flag 0, the state finite, K5 and K2 launched
-    2 * NG times; ms/step and cell-steps/s.
+    lattice=True, **GABRIEL_100K)`` and ``Links``, ``NG`` steps of
+    ``Links.update`` + ``take_step`` after one warm-up step, every flag 0,
+    the state finite, K5 and K2 launched 2 * NG times; ms/step and
+    cell-steps/s.
 
 It then prints the kernels' JSON record (each kernel's ``device_ms`` is
 its profiler time on its path's main shapes) and, last, the device
@@ -113,12 +117,7 @@ N5 = 200
 K4_ATOL = 1e-4
 NG_CELLS = 100_000
 NG = 20
-# bench_gabriel_lattice.py:43-58 at 100k cells has grid 48, C 8 and NC 20,
-# certified there with dead links.  Live protrusions contract the tissue:
-# the largest candidate count grows from 16 to 22 in 21 steps and a cube
-# fills to 9 by step 23, so the slice takes C 16 (the grid stays 48) and
-# NC 32.
-GABRIEL_100K = dict(grid_size=48, capacity=16, max_candidates=32)
+# the 100k slice's engine settings are kernel_profile.GABRIEL_100K
 GABRIEL_SMALL = dict(grid_size=16, capacity=8, max_candidates=20)
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, f32 FLOP/s outside
 # the tensor cores
@@ -510,24 +509,61 @@ def sorting_slices(dev):
     return launches
 
 
-def gabriel_kernel_check(dev):
-    """Phase 10: K5 against its plain version on the 100k tissue, and K2
-    on its lattice build.  Returns ((max abs err, ms, plain ms, bound ms,
-    bound by, device ms) of K5, K2's max abs err)."""
+def gabriel_overflow_check(dev):
+    """K5 against its plain version where the compact set overflows: NC 4
+    on the 2,000-cell half-space tissue.  The per-point overflow flags
+    equal, and the sums equal on the points that overflowed (which rest on
+    the first NC candidates in stencil order) and on those that did
+    not.  Returns the max abs error."""
     import torch
+    from yalla_tpu_torch.kernel_profile import gabriel_tissue
+    from yalla_tpu_torch.models import growth_w_wall as W
+    from yalla_tpu_torch.ops.gabriel_pallas import (gabriel_lattice_pallas,
+                                                    gabriel_lattice_plain)
+    X, ov, n = gabriel_tissue(2000, dev)
+    kw = dict(GABRIEL_SMALL, max_candidates=4)
+    args = (W.relu_force, W.wall_friction, X, ov, n, W.r_max)
+    got, want = (flatten(fn(*args, **kw), "", n)
+                 for fn in (gabriel_lattice_pallas, gabriel_lattice_plain))
+    torch.cuda.synchronize()
+    over = want["__err_gabriel_candidates"] > 0
+    n_over = int(over.sum())
+    if not 0 < n_over < n:
+        raise AssertionError(f"K5 NC 4: {n_over} of {n} points overflow; the "
+                             f"check needs both kinds")
+    exact = {"sum_f", "__err_gabriel_candidates", "__err_lattice_dropped",
+             "__err_out_of_grid"}
+    err = 0.0
+    for tag, rows in (("overflowed", over), ("within NC", ~over)):
+        def pick(d, rows=rows):
+            return {k: a if a.shape != rows.shape else a[rows]
+                    for k, a in d.items()}
+        err = max(err, compare_sums(f"K5 NC 4 {tag}", pick(got), pick(want),
+                                    exact))
+    print(f"K5 Gabriel lattice at NC 4 on the 2,000-cell tissue ({n} cells): "
+          f"{n_over} points overflow, flags equal, sum_f exact "
+          f"({int(want['sum_f'][over].sum())} kept pair ends on the "
+          f"overflowed points), max abs err {err:.3g}")
+    return err
+
+
+def gabriel_kernel_check(dev):
+    """Phase 10: K5 against its plain version on the 100k tissue and where
+    its compact set overflows, and K2 on its lattice build.  Returns ((max
+    abs err, ms, plain ms, bound ms, bound by, device ms) of K5, K2's max
+    abs err)."""
+    import torch
+    from yalla_tpu_torch.kernel_profile import (GABRIEL_100K, device_window,
+                                                gabriel_after_build,
+                                                gabriel_tissue, named)
     from yalla_tpu_torch.models import growth_w_wall as W
     from yalla_tpu_torch.ops.common import cube_ids
     from yalla_tpu_torch.ops.gabriel_pallas import (gabriel_lattice_pallas,
                                                     gabriel_lattice_plain)
     from yalla_tpu_torch.ops.lattice_pour import pour_pallas
     from yalla_tpu_torch.ops.lattice_xla import lattice_build, sort_by_cube
-    from yalla_tpu_torch.solvers import Solution
-    n_pad = Solution(W.Float3, NG_CELLS, device=dev).n_pad
-    h, n = W.half_space_tissue(NG_CELLS, n_pad)
-    X = W.Float3(*(torch.as_tensor(h[f], device=dev) for f in "xyz"))
-    g = torch.Generator().manual_seed(0)
-    ov = W.Float3(*(0.01 * torch.randn(n_pad, generator=g).to(dev)
-                    for _ in range(3)))
+    X, ov, n = gabriel_tissue(NG_CELLS, dev)
+    n_pad = X.x.shape[0]
     args = (W.relu_force, W.wall_friction, X, ov, n, W.r_max)
 
     def k5():
@@ -554,17 +590,28 @@ def gabriel_kernel_check(dev):
         d2 = ((P[i0:i0 + 1024, None, :] - P[None, :, :]) ** 2).sum(-1)
         cand[i0:i0 + 1024] = (d2 < W.r_max ** 2).sum(1) - 1
     del P
-    gs = GABRIEL_100K["grid_size"]
+    gs, C = GABRIEL_100K["grid_size"], GABRIEL_100K["capacity"]
     live_cube = cube_ids(X, n, W.r_max, gs)[:n]
     n_ops = stencil_candidates(live_cube, gs, gs, gs) * OPS_DIST + \
         float((cand ** 2).sum()) * OPS_MIDPOINT + \
         kept * OPS_PER_PAIR["wall_relu"]
-    n_bytes = nbytes(*X, *ov) * n // n_pad + nbytes(*got[0], got[1],
-                                                    *got[2])
+    # the bytes: the occupancy as the lattice holds it, each cube's live
+    # stable ids and the empty slot that ends them (8 bytes each; a full
+    # cube has none), the live points' positions and old_v, and the 8 rows
+    # written (F, sum_f, sum_v and the candidate flag)
+    per_cube = torch.bincount(live_cube, minlength=gs ** 3)
+    id_bytes = 8 * int(torch.clamp(per_cube + 1, max=C).sum())
+    n_bytes = id_bytes + nbytes(*X, *ov) * n // n_pad + nbytes(
+        *got[0], got[1], *got[2], got[3]["__err_gabriel_candidates"])
     bound_ms, bound_by = bound(n_bytes, n_ops)
-    gs, C = GABRIEL_100K["grid_size"], GABRIEL_100K["capacity"]
     build_ms = cuda_ms(lambda: lattice_build(X, ov, n, W.r_max, gs, C), 20)
-    dev_ms = profiled_ms(k5, ["gabriel_pair_kernel"])["gabriel_pair_kernel"]
+    # every kernel and fill the wrapper launches after its lattice build
+    with gabriel_after_build(X, ov, n, **GABRIEL_100K) as k5_built:
+        per, dev_ms, n_kernels = device_window(k5_built, 10)
+    pair_ms = named(per, ["gabriel_pair_kernel"])["gabriel_pair_kernel"]
+    if not pair_ms > 0:
+        raise AssertionError("torch.profiler shows no device time for "
+                             "gabriel_pair_kernel")
     # K2 on this path's lattice build
     cs = sort_by_cube(X, ov, n, W.r_max, gs, C)
     pour_err = check_pour("100k Gabriel", cs, gs, C)
@@ -572,14 +619,21 @@ def gabriel_kernel_check(dev):
     print(f"K2 pour device time per 100k build (torch.profiler): "
           f"{pour_dev:.4f} ms")
     print(f"K5 Gabriel lattice on the 100k half-space tissue ({n} cells in "
-          f"{n_pad} rows, gs {GABRIEL_100K['grid_size']}, C "
-          f"{GABRIEL_100K['capacity']}, NC "
+          f"{n_pad} rows, gs {gs}, C {C}, NC "
           f"{GABRIEL_100K['max_candidates']}): {kept} kept non-wall pair "
           f"ends, sum_f and flags {flags} exact, max abs err {err:.3g} (rtol "
           f"{RTOL}, atol {ATOL} x max(1, max|plain|)); {ms:.4f} ms/pass vs "
           f"plain {plain_ms:.4f} ms/pass, of which the lattice build "
-          f"{build_ms:.4f} ms; gabriel_pair_kernel {dev_ms:.4f} ms per pass "
-          f"(torch.profiler); bound {bound_ms:.4f} ms ({bound_by})")
+          f"{build_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{n_bytes / 1e6:.2f} MB of which {id_bytes / 1e6:.2f} MB of "
+          f"stable ids, {n_ops / 1e9:.3f} GFLOP)")
+    print(f"K5 device time per 100k pass after the build (torch.profiler): "
+          f"{dev_ms:.4f} ms in {n_kernels:g} kernels = {pair_ms:.4f} "
+          f"gabriel_pair_kernel + {dev_ms - pair_ms:.4f} for the fill of "
+          f"the sums and the casts of the flags; bound "
+          f"{100 * bound_ms / dev_ms:.1f} % of it")
+    ptxas_report(["gabriel_pair_kernel"])
+    err = max(err, gabriel_overflow_check(dev))
     return (err, ms, plain_ms, bound_ms, bound_by, dev_ms), pour_err
 
 
@@ -642,6 +696,7 @@ def growth_w_wall_slice(dev):
     import numpy as np
     import torch
     from yalla_tpu_torch.dtypes import Float3
+    from yalla_tpu_torch.kernel_profile import GABRIEL_100K
     from yalla_tpu_torch.solvers import GabrielEngine, Solution
     engine = GabrielEngine(lattice=True, **GABRIEL_100K)
     # the solver name reaches the same engine class

@@ -31,7 +31,8 @@ from yalla_tpu_torch.ops.central_mxu import (central_pairwise_mxu,
                                              central_pairwise_plain)
 from yalla_tpu_torch.ops.common import (friction_on_background,
                                         friction_w_neighbour)
-from yalla_tpu_torch.ops.gabriel_pallas import (gabriel_lattice_pallas,
+from yalla_tpu_torch.ops.gabriel_pallas import (GABRIEL_MAX_NC,
+                                                gabriel_lattice_pallas,
                                                 gabriel_lattice_plain)
 from yalla_tpu_torch.ops.lattice_pallas import (lattice_pairwise_pallas,
                                                 lattice_pairwise_plain)
@@ -170,8 +171,9 @@ def _branching_cells(n, n_pad, spacing, side, seed):
 # K1 edge shapes: (cells, rows, lattice spacing, sites per side, grid,
 # capacity, extras_cap); n 0 is the empty lattice, "boundary" keeps only
 # cells in the outer cubes of its 8^3 grid, "ragged" fills every cube of
-# an 11^3 grid, which the 2 x 4 x 8 brick divides in no axis (with no
-# extras: the JAX kernel's extras blocks need gy % 8 == 0)
+# an 11^3 grid, which the 2 x 4 x 8 brick divides in no axis, with no
+# extras and, at C 4, with overflow extras (a grid the JAX kernel's extras
+# blocks refuse: its flag's last y block is ragged here)
 PAIR_CASES = {
     "settled600": None,
     "empty": (0, 640, 0.6, 9, 32, 4, 64),
@@ -179,6 +181,7 @@ PAIR_CASES = {
     "c1": (300, 320, 0.9, 7, 16, 1, 512),
     "c16": (3000, 3072, 0.45, 15, 16, 16, 2048),
     "ragged": (4913, 4992, 0.6, 17, 11, 8, 0),
+    "ragged_extras": (4913, 4992, 0.6, 17, 11, 4, 2048),
 }
 
 
@@ -197,7 +200,7 @@ def _pair_case(case, device):
         h = {f: np.where(np.arange(n_pad) < keep.sum(), a[order], 0)
              .astype(np.float32) for f, a in h.items()}
         n = int(keep.sum())
-    if case == "ragged":
+    if case.startswith("ragged"):
         # shift the block of cells from [-4.9, 4.9] to cubes 0 .. 10
         for f in "xyz":
             h[f][:n] += 0.5
@@ -206,6 +209,7 @@ def _pair_case(case, device):
     ovt = Float3(*(torch.as_tensor(ov[f], device=device) for f in "xyz"))
     lay = lattice_build(X, ovt, n, 1.0, gs, cap, e_cap)
     assert int(lay.n_dropped) == 0 and int(lay.n_oob) == 0
+    assert case != "ragged_extras" or int(lay.n_extras) > 100
     E = None if lay.E is None else augment(lay.E, n, B.precompute)
     return (lay._replace(T=augment(lay.T, n, B.precompute), E=E), n, gs,
             cap)
@@ -216,7 +220,7 @@ def test_pair_kernel_matches_plain(cuda, case):
     """K1 against its plain version on the settled 600-cell state (gs 32,
     C 4, with extras) and on edge shapes: an empty lattice, cells only in
     the boundary cubes, C 1 and C 16 (both with overflow extras), and a
-    grid whose bricks are ragged in every axis."""
+    grid whose bricks are ragged in every axis, without and with extras."""
     lay, n, gs, cap = _pair_case(case, cuda)
     force = B.make_force(B.Params())
     kw = dict(grid_size=gs, capacity=cap, z_block=2, extras_block_cap=16)
@@ -425,10 +429,24 @@ def _half_space(device, n_cells=2000):
     return X, ov, n
 
 
-@pytest.mark.parametrize("nc", [20, 100])
+def _assert_gabriel(got, want):
+    """K5 against its plain version: every flag and the friction sum (kept
+    non-wall pairs) exact, F and sum_v within tolerance."""
+    assert set(got[3]) == set(want[3])
+    for k in want[3]:
+        assert torch.equal(got[3][k], want[3][k]), k
+    assert torch.equal(got[1], want[1])
+    for a, b in zip(list(got[0]) + list(got[2]),
+                    list(want[0]) + list(want[2])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("nc", [20, 100, 4])
 def test_gabriel_kernel_matches_plain(cuda, nc):
-    """K5 with the growth_w_wall functor, at both candidate-array sizes:
-    the friction sum (kept non-wall pairs) and the flags exact."""
+    """K5 with the growth_w_wall functor on the 2,000-cell tissue: compact
+    sets that hold every candidate (NC 20, NC 100) and one that overflows
+    on most points (NC 4), where the first NC in stencil order must be the
+    plain version's."""
     X, ov, n = _half_space(cuda)
     kw = dict(GABRIEL, max_candidates=nc)
     before = gabriel_lattice_pallas.launches
@@ -437,14 +455,58 @@ def test_gabriel_kernel_matches_plain(cuda, nc):
     want = gabriel_lattice_plain(W.relu_force, W.wall_friction, X, ov, n,
                                  1.0, **kw)
     assert gabriel_lattice_pallas.launches == before + 1
-    assert set(got[3]) == set(want[3])
-    for k in want[3]:
-        assert torch.equal(got[3][k], want[3][k]), k
-        assert float(want[3][k].max()) == 0.0, k
-    assert torch.equal(got[1], want[1])
-    for a, b in zip(list(got[0]) + list(got[2]),
-                    list(want[0]) + list(want[2])):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    _assert_gabriel(got, want)
+    over = want[3]["__err_gabriel_candidates"][:n]
+    if nc == 4:
+        # both kinds of point: overflowed and not
+        assert 0 < int(over.sum()) < n
+        assert float(want[1][:n][over > 0].sum()) > 0
+    else:
+        assert float(over.max()) == 0.0
+    for k in ("__err_lattice_dropped", "__err_out_of_grid"):
+        assert float(want[3][k]) == 0.0, k
+
+
+# K5 edge shapes: (cells, rows, grid, capacity, NC), uniform random points
+# over the whole grid.  Capacities no multiple of the 4 ids a lane group
+# reads at once, cubes filled to capacity and past it (most cases drop
+# points: their ids read zero), C 1, an empty lattice, a single point,
+# grids no brick divides, the largest compact set and the smallest, and a
+# capacity whose brick is smaller than 4 x 4 x 4
+GABRIEL_CASES = {
+    "ragged": (4000, 4096, (11, 11, 11), 8, 40),
+    "flat": (600, 640, (10, 7, 3), 6, 40),
+    "c3": (3000, 3072, 12, 3, 20),
+    "c1": (2000, 2048, 12, 1, 20),
+    "c16_full": (12000, 12288, 8, 16, GABRIEL_MAX_NC),
+    "c32": (6000, 6144, 8, 32, 64),
+    "nc1": (3000, 3072, 12, 8, 1),
+    "empty": (0, 256, 16, 8, 20),
+    "one": (1, 256, 16, 8, 20),
+}
+
+
+@pytest.mark.parametrize("case", list(GABRIEL_CASES))
+def test_gabriel_kernel_edge_shapes(cuda, case):
+    n, n_pad, grid, cap, nc = GABRIEL_CASES[case]
+    dims = (grid,) * 3 if isinstance(grid, int) else grid
+    rng = np.random.default_rng(11)
+    h = [np.zeros(n_pad, np.float32) for _ in dims]
+    for a, g in zip(h, dims):
+        a[:n] = rng.uniform(-(g // 2), g - g // 2, n)
+    X = Float3(*(torch.as_tensor(a, device=cuda) for a in h))
+    ov = Float3(*(torch.as_tensor(
+        (0.01 * rng.standard_normal(n_pad)).astype(np.float32), device=cuda)
+        for _ in range(3)))
+    kw = dict(grid_size=grid, capacity=cap, max_candidates=nc)
+    got = gabriel_lattice_pallas(W.relu_force, W.wall_friction, X, ov, n,
+                                 1.0, **kw)
+    want = gabriel_lattice_plain(W.relu_force, W.wall_friction, X, ov, n,
+                                 1.0, **kw)
+    _assert_gabriel(got, want)
+    assert float(want[3]["__err_out_of_grid"]) == 0.0
+    if n > 1 and nc > 1:
+        assert float(want[1].sum()) > 0            # kept pairs to compare
 
 
 def test_gabriel_kernel_refuses_force_or_friction_without_functor(cuda):

@@ -5,7 +5,9 @@ bricks whose halo and sums fit the H100's shared memory; ``tile_plan``
 (K3, ``csrc/tile_pair.cu``) splits the all-pairs j range across blocks,
 and ``central_plan`` (K4, ``csrc/central_pair.cu``) does the same for
 the central kernel's rows and sums; ``pour_plan`` (K2, ``csrc/pour.cu``)
-gives each block whole rows of slots.  All are plain Python, so their
+gives each block whole rows of slots; ``gabriel_plan`` (K5,
+``csrc/gabriel_pair.cu``) cuts the lattice into bricks whose halo of live
+points and compact sets fit.  All are plain Python, so their
 arithmetic is held here: every cube in exactly one brick, every j in
 exactly one split, every row in one block, shared memory and scratch as
 the kernels lay them out.  Also: the plain lattice pass on an empty
@@ -21,6 +23,10 @@ from yalla_tpu_torch.dtypes import Float3
 from yalla_tpu_torch.models import branching as B
 from yalla_tpu_torch.ops.central_mxu import CENTRAL_ROWS, central_plan
 from yalla_tpu_torch.ops.common import friction_w_neighbour
+from yalla_tpu_torch.ops import gabriel_pallas as G
+from yalla_tpu_torch.ops.gabriel_pallas import (GABRIEL_MAX_NC,
+                                                gabriel_plan,
+                                                gabriel_smem_bytes)
 from yalla_tpu_torch.ops.lattice_pallas import (BRICKS, SMEM_BUDGET,
                                                 SMEM_MAX,
                                                 lattice_pairwise_plain,
@@ -82,6 +88,72 @@ def test_lattice_plan_main_path_and_refusals():
         lattice_plan(8, 256)
     with pytest.raises(ValueError):
         lattice_plan(2048, 8)            # slot ids past 2^31
+
+
+def _brick_cover(plan, grid):
+    """How often the kernels' block -> brick origin arithmetic covers each
+    cube of ``grid``: an int array [gz, gy, gx]."""
+    gx, gy, gz = (grid,) * 3 if isinstance(grid, int) else grid
+    bz, by, bx = plan.brick
+    nbx, nby = -(-gx // bx), -(-gy // by)
+    seen = np.zeros((gz, gy, gx), np.int64)
+    for b in range(plan.blocks):
+        x0, y0, z0 = b % nbx * bx, b // nbx % nby * by, b // (nbx * nby) * bz
+        seen[z0:z0 + bz, y0:y0 + by, x0:x0 + bx] += 1
+    return seen
+
+
+@pytest.mark.parametrize("max_candidates", [1, 32, GABRIEL_MAX_NC])
+@pytest.mark.parametrize("grid,capacity", LATTICES)
+def test_gabriel_plan_tiles_the_grid(grid, capacity, max_candidates):
+    """K5's plan: every cube in exactly one brick, ragged edges included;
+    shared memory as the kernel lays it out, three blocks to an SM; the
+    staged list within its 15-bit places; the largest brick that fits."""
+    plan = gabriel_plan(grid, capacity, max_candidates)
+    gx, gy, gz = (grid,) * 3 if isinstance(grid, int) else grid
+    bz, by, bx = plan.brick
+    assert plan.smem == gabriel_smem_bytes(plan.brick, capacity,
+                                           max_candidates)
+    assert plan.smem <= G.SMEM_BUDGET < G.SMEM_MAX
+    assert 3 * (plan.smem + 1024) <= 233_472
+    # a cube's slots are strided by the capacity rounded up to a power of 2
+    stride = 1 << (capacity - 1).bit_length()
+    assert capacity <= stride < 2 * capacity
+    assert (bz + 2) * (by + 2) * (bx + 2) * stride <= G.GABRIEL_MAX_STAGED
+    assert bz <= gz and by <= gy and bx <= gx
+    assert (_brick_cover(plan, grid) == 1).all()
+    fits = [min(b[0], gz) == bz and min(b[1], gy) == by
+            and min(b[2], gx) == bx for b in G.BRICKS]
+    for b in G.BRICKS[:fits.index(True)]:
+        clipped = (min(b[0], gz), min(b[1], gy), min(b[2], gx))
+        assert gabriel_smem_bytes(clipped, capacity, max_candidates) > \
+            G.SMEM_BUDGET
+
+
+def test_gabriel_plan_main_path_and_refusals():
+    # the 100k growth_w_wall path: 4 x 4 x 4 cubes a block, 216 in its halo
+    plan = gabriel_plan(48, 16, 32)
+    assert plan.brick == (4, 4, 4) and plan.blocks == 12 ** 3
+    assert plan.smem == 16 * 216 * 16 + 8 * 216 + 16 + 2 * 64 * 16 + \
+        2 * 64 * 32 == 63_184
+    # C 6 strides its cubes by 8
+    assert gabriel_smem_bytes((1, 1, 1), 6, 1) == 16 * 27 * 8 + 8 * 27 + \
+        16 + 2 * 6 + 2 * 64
+    # the largest compact set costs 12 KB more and keeps the brick
+    big = gabriel_plan(48, 16, GABRIEL_MAX_NC)
+    assert big.brick == (4, 4, 4) and big.smem == plan.smem + 2 * 64 * 96
+    # a capacity whose 4 x 4 x 4 halo is past the budget takes less
+    assert gabriel_plan(48, 32, 32).brick == (2, 2, 4)
+    # the wrapper asks once per shape
+    assert gabriel_plan(48, 16, 32) is plan
+    # one cube and its halo past 227 KB: no brick fits
+    with pytest.raises(ValueError, match="shared memory"):
+        gabriel_plan(8, 600, 32)
+    with pytest.raises(ValueError, match="staged slots"):
+        gabriel_plan(8, 2000, 32)
+    for bad in ((8, 0, 32), (8, 8, 0), (2048, 8, 32)):
+        with pytest.raises(ValueError):
+            gabriel_plan(*bad)
 
 
 def _tile_cases():

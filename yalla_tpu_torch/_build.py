@@ -55,10 +55,10 @@ SIGNATURES = {
                                    _I, _I, _P, _P, _P],
     "yalla_central_pair_sorting_nbs": [_P, _P, _I, _I, _I, _I, _P, _I, _P,
                                        _I, _I, _I, _P, _P, _P],
-    # chans[kFields + 3], pid, slot_of, n_pad, gx, gy, gz, C, cube_size,
-    # gc2, NC, params, out, stream
-    "yalla_gabriel_pair_wall_relu": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                                     _I, _P, _P, _P],
+    # chans[kFields + 3], pid, n_pad, gx, gy, gz, C, cube_size, gc2, NC,
+    # bz, by, bx, smem, params, out, stream
+    "yalla_gabriel_pair_wall_relu": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
+                                     _I, _I, _I, _L, _P, _P, _P],
     # in, out, n, stream
     "yalla_rsqrtf": [_P, _P, _L, _P],
 }

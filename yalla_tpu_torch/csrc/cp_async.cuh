@@ -1,6 +1,6 @@
 // Asynchronous copies from device memory to shared memory (cp.async,
 // sm_80 and later), shared by the kernels that stage tiles: lattice_pair.cu
-// (K1), tile_pair.cu (K3) and central_pair.cu (K4).
+// (K1), tile_pair.cu (K3), central_pair.cu (K4) and gabriel_pair.cu (K5).
 #pragma once
 
 #include <cuda_runtime.h>

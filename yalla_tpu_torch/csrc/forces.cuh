@@ -18,6 +18,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cmath>
+
 namespace yalla {
 
 // |a - b|^2 rounded exactly as torch computes rx*rx + ry*ry + rz*rz: every
@@ -34,6 +36,19 @@ __device__ __forceinline__ float pair_d2(float ax, float ay, float az,
 __device__ __forceinline__ float pair_dist(float ax, float ay, float az,
                                            float bx, float by, float bz) {
   return sqrtf(pair_d2(ax, ay, az, bx, by, bz));
+}
+
+// IEEE sqrt is correctly rounded and monotone, so sqrtf(d2) < cutoff holds
+// exactly for d2 <= reach2_of(cutoff): the largest such float, or -1 if
+// none is.  A scan that tests d2 against it skips the square root and
+// decides as sqrtf does.  Host code: the entry points compute it once.
+inline float reach2_of(float cutoff) {
+  if (!(cutoff > 0.0f)) return -1.0f;
+  float t = cutoff * cutoff;
+  while (t > 0.0f && !(std::sqrt(t) < cutoff)) t = std::nextafter(t, 0.0f);
+  while (std::sqrt(std::nextafter(t, INFINITY)) < cutoff)
+    t = std::nextafter(t, INFINITY);
+  return t;
 }
 
 struct BranchingCell {

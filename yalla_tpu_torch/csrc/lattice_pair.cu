@@ -84,6 +84,7 @@ using yalla::BranchingParams;
 using yalla::cp_async4;
 using yalla::pair_d2;
 using yalla::pair_dist;
+using yalla::reach2_of;
 using Cell = BranchingForce::Cell;
 
 constexpr int kChans = 12;  // x y z u v ctype px py pz ov_x ov_y ov_z
@@ -111,21 +112,9 @@ __device__ __forceinline__ Cell load_cell(const Chans& c, int s) {
 struct Grid {
   int gx, gy, gz, C;
   float cutoff;
-  float reach2;  // the largest d2 with sqrtf(d2) < cutoff (reach2_of)
+  float reach2;  // the largest d2 with sqrtf(d2) < cutoff
+                 // (forces.cuh::reach2_of)
 };
-
-// IEEE sqrt is correctly rounded and monotone, so sqrtf(d2) < cutoff holds
-// exactly for d2 <= reach2_of(cutoff): the largest such float, or -1 if
-// none is.  The staged scan tests d2 against it and skips the square root;
-// its decisions are sqrtf's.
-float reach2_of(float cutoff) {
-  if (!(cutoff > 0.0f)) return -1.0f;
-  float t = cutoff * cutoff;
-  while (t > 0.0f && !(std::sqrt(t) < cutoff)) t = std::nextafter(t, 0.0f);
-  while (std::sqrt(std::nextafter(t, INFINITY)) < cutoff)
-    t = std::nextafter(t, INFINITY);
-  return t;
-}
 
 struct Brick {
   int bz, by, bx;  // cubes per block

@@ -1,4 +1,4 @@
-"""Device time of the port's kernels K1 to K4 and of the steps around
+"""Device time of the port's kernels K1 to K5 and of the steps around
 them, by ``torch.profiler``, on one GPU.
 
     python3 yalla_tpu_torch/kernel_profile.py [ROOT ...]
@@ -17,29 +17,41 @@ one JSON line:
   state with the hand-written adhesion;
 * ``k4``: device ms per pass of each K4 kernel on the same state with the
   central adhesion;
-* ``step_500k``, ``step_5k_tile`` and ``step_5k_central``: per step of the
-  500k slice and of the 5k slice on ``TileEngine(pallas=True)`` and
-  ``TileEngine(mxu=True)``, the device busy ms (the sum of every kernel's
-  and copy's device time in a profiled window, over its steps), the
-  device kernels launched, and the wall ms of each of ``WALL_WINDOWS``
-  unprofiled windows.
+* ``k5``: device ms per pass of the Gabriel lattice wrapper on the 100k
+  half-space tissue (gs 48, C 16, NC 32) after its lattice build
+  (``busy_ms``: every kernel and fill it launches then, ``kernels`` of
+  them) and of the pair kernel itself (``gabriel_pair_kernel``);
+* ``step_500k``, ``step_5k_tile``, ``step_5k_central`` and ``step_100k``:
+  per step of the 500k slice, of the 5k slice on
+  ``TileEngine(pallas=True)`` and ``TileEngine(mxu=True)``, and of the
+  100k growth_w_wall slice (``Links.update`` + ``take_step``), the device
+  busy ms (the sum of every kernel's and copy's device time in a profiled
+  window, over its steps), the device kernels launched, and the wall ms
+  of each of ``WALL_WINDOWS`` unprofiled windows.
+
+Every device time is the mean of ``DEVICE_WINDOWS`` profiled windows; the
+windows' own values of the entry's metric stand beside it (``windows_ms``:
+the named kernels' sum for ``k1``, ``k3`` and ``k4``, else ``busy_ms``).
 
     python3 yalla_tpu_torch/kernel_profile.py --plans [ROOT]
 
 prints instead one JSON line of the launch plans around the ones the
 wrappers take: the pour's device ms per build at 1, 2, 4 and 8 rows of
 slots per block (``pour_plan``) on the 500k and the 100k growth_w_wall
-builds, and the central kernels' device ms per 5k pass at 26, 52, 53 and
-66 splits of j (``central_plan``).
+builds, the central kernels' device ms per 5k pass at 26, 52, 53 and
+66 splits of j (``central_plan``), and the Gabriel lattice kernel's device
+ms per 100k pass at other bricks of cubes (``gabriel_plan``).
 
 A root named more than once runs each time, so two trees compare in one
 call in turns: ``A B A B A B``.  Given exactly two trees in alternation,
 it then prints one JSON line of verdicts, per metric: ``better`` or
 ``worse`` (the second tree against the first) where every pair agrees and
-each pair's difference exceeds the spread of both runs' windows, else
-``unresolved``.  The card's name and power limit lead every line.  Exits
-non-zero without a CUDA device, or if a window shows no device time.
+each pair's difference of medians exceeds the spread of both runs'
+windows (device and wall windows alike), else ``unresolved``.  The card's
+name and power limit lead every line.  Exits non-zero without a CUDA
+device, or if a window shows no device time.
 """
+import contextlib
 import json
 import statistics
 import subprocess
@@ -56,6 +68,14 @@ K1_KERNELS = ("lattice_pair_kernel", "extras_pair_kernel")
 K3_KERNELS = ("tile_pair_kernel", "tile_reduce_kernel")
 K4_KERNELS = ("central_pair_kernel", "central_reduce_kernel")
 WALL_WINDOWS = 5
+DEVICE_WINDOWS = 3
+# The 100k growth_w_wall slice's engine.  benchmarks/
+# bench_gabriel_lattice.py:43-58 at 100k cells has grid 48, C 8 and NC 20,
+# certified there with dead links.  Live protrusions contract the tissue:
+# the largest candidate count grows from 16 to 22 in 21 steps and a cube
+# fills to 9 by step 23, so the slice takes C 16 (the grid stays 48) and
+# NC 32.
+GABRIEL_100K = dict(grid_size=48, capacity=16, max_candidates=32)
 
 
 def card():
@@ -108,6 +128,77 @@ def named(per, names):
     return {n: sum(v for k, v in per.items() if n in k) for n in names}
 
 
+def gabriel_tissue(n_cells, dev):
+    """The half-space tissue of ``n_cells`` with a small seeded old_v, on
+    ``dev``: ``(X, old_v, n)``."""
+    import torch
+    from yalla_tpu_torch.models import growth_w_wall as W
+    from yalla_tpu_torch.solvers import Solution
+    n_pad = Solution(W.Float3, n_cells, device=dev).n_pad
+    h, n = W.half_space_tissue(n_cells, n_pad)
+    X = W.Float3(*(torch.as_tensor(h[f], device=dev) for f in "xyz"))
+    g = torch.Generator().manual_seed(0)
+    ov = W.Float3(*(0.01 * torch.randn(n_pad, generator=g).to(dev)
+                    for _ in range(3)))
+    return X, ov, n
+
+
+@contextlib.contextmanager
+def gabriel_after_build(X, ov, n, **engine):
+    """The Gabriel lattice wrapper with the growth_w_wall force on
+    ``(X, ov, n)`` as a function of no arguments, its lattice build left
+    out: inside the context the wrapper is handed the layout built once
+    beforehand, so a window around the function holds every kernel and
+    fill the wrapper launches after the build."""
+    from unittest import mock
+
+    from yalla_tpu_torch.models import growth_w_wall as W
+    from yalla_tpu_torch.ops import gabriel_pallas
+    lay = gabriel_pallas.lattice_build(X, ov, n, W.r_max,
+                                       engine["grid_size"],
+                                       engine["capacity"], 0)
+    with mock.patch.object(gabriel_pallas, "lattice_build",
+                           lambda *_: lay):
+        yield lambda: gabriel_pallas.gabriel_lattice_pallas(
+            W.relu_force, W.wall_friction, X, ov, n, W.r_max, **engine)
+
+
+def _device_windows(fn, calls, names=(), of_names=False, fresh=False):
+    """``DEVICE_WINDOWS`` windows of :func:`device_window` as one entry of
+    the JSON line: the mean device ms per call of all kernels and copies
+    (``busy_ms``), their count (``kernels``), the mean of each kernel in
+    ``names``, and the entry's metric per window (``windows_ms``: the sum
+    of ``names`` if ``of_names``, else the busy time).  With ``fresh``,
+    ``fn`` makes the function to profile, anew for every window, so that
+    the windows of a state that changes as it runs cover the same steps."""
+    runs = [device_window(fn() if fresh else fn, calls)
+            for _ in range(DEVICE_WINDOWS)]
+    per = [named(r[0], names) for r in runs]
+    return {"busy_ms": statistics.mean(r[1] for r in runs),
+            "kernels": statistics.mean(r[2] for r in runs),
+            **{k: statistics.mean(p[k] for p in per) for k in names},
+            "windows_ms": [sum(p.values()) if of_names else r[1]
+                           for p, r in zip(per, runs)]}
+
+
+def growth_w_wall_step(dev, n_cells, engine, links_seed):
+    """A function that takes one step of the growth_w_wall loop
+    (``Links.update``, then ``take_step`` with the link and wall forces)
+    on a fresh half-space tissue of ``n_cells``."""
+    from yalla_tpu_torch.links import Links, link_wall_forces
+    from yalla_tpu_torch.models import growth_w_wall as W
+    sol = W.half_space_solution(n_cells, engine, dev)
+    links = Links(n_cells, W.protrusion_strength, seed=links_seed,
+                  device=dev)
+    links.set_d_n(sol.h_n)
+
+    def step():
+        links.update(W.update_protrusions_wall, sol)
+        sol.take_step(W.dt, W.relu_force, pw_friction=W.wall_friction,
+                      gen_forces=link_wall_forces(links, W.WALL))
+    return step
+
+
 def _wall_ms(fn, calls):
     """Wall ms per call of ``fn`` in each of ``WALL_WINDOWS`` windows of
     ``calls`` calls, after one warm-up call."""
@@ -142,7 +233,8 @@ def _one(root):
     from yalla_tpu_torch.ops.lattice_pour import pour_pallas
     from yalla_tpu_torch.ops.lattice_xla import lattice_build, sort_by_cube
     from yalla_tpu_torch.ops.tile_pallas import tile_pairwise_pallas
-    from yalla_tpu_torch.solvers import Solution, TileEngine, augment
+    from yalla_tpu_torch.solvers import (GabrielEngine, Solution,
+                                         TileEngine, augment)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     _build.library()
@@ -170,11 +262,10 @@ def _one(root):
     lay = lattice_build(X, ov, 500_000, cube, gs, C, engine.extras_cap)
     lay = lay._replace(T=augment(lay.T, 500_000, B.precompute),
                        E=augment(lay.E, 500_000, B.precompute))
-    per, _, _ = device_window(lambda: lattice_pairwise_pallas(
+    out["k1"] = _device_windows(lambda: lattice_pairwise_pallas(
         force, friction_w_neighbour, lay, 500_000, cube, grid_size=gs,
         capacity=C, z_block=engine.z_block,
-        extras_block_cap=engine.extras_block_cap), 10)
-    out["k1"] = named(per, K1_KERNELS)
+        extras_block_cap=engine.extras_block_cap), 10, K1_KERNELS, True)
     cs = sort_by_cube(X, ov, 500_000, cube, gs, C)
     if hasattr(cs, "row_starts"):
         def pour():
@@ -182,18 +273,14 @@ def _one(root):
     else:            # trees whose pour took (S, n_slots)
         def pour():
             pour_pallas(cs.S, gs[0] * gs[1] * gs[2] * C)
-    per, busy, kernels = device_window(pour, 20)
-    out["k2"] = {"busy_ms": busy, "kernels": kernels,
-                 **named(per, ("pour_kernel",))}
+    out["k2"] = _device_windows(pour, 20, ("pour_kernel",))
     del X, ov, lay, cs
     sol = solution(settled, 500_000, engine, cube, B.Cell)
     dt = B.Params().dt
 
     def step500k():
         sol.take_steps(1, dt, force, precompute=B.precompute)
-    per, busy, kernels = device_window(step500k, 4)
-    out["step_500k"] = {"busy_ms": busy, "kernels": kernels,
-                        "k1_ms": sum(named(per, K1_KERNELS).values()),
+    out["step_500k"] = {**_device_windows(step500k, 4, K1_KERNELS),
                         "wall_ms": _wall_ms(step500k, 10)}
     del sol
 
@@ -202,13 +289,11 @@ def _one(root):
     settled5k = cache / "settled_sorting_p5120_5000_s0_v1.npz"
     X, ov = load_settled(settled5k, S.Cell, dev)
     adhesion = S.make_adhesion(sp)
-    per, _, _ = device_window(lambda: tile_pairwise_pallas(
-        adhesion, friction_w_neighbour, X, ov, 5000), 20)
-    out["k3"] = named(per, K3_KERNELS)
+    out["k3"] = _device_windows(lambda: tile_pairwise_pallas(
+        adhesion, friction_w_neighbour, X, ov, 5000), 20, K3_KERNELS, True)
     central = S.make_adhesion_central(sp)
-    per, _, _ = device_window(lambda: central_pairwise_mxu(
-        central, friction_w_neighbour, X, ov, 5000), 20)
-    out["k4"] = named(per, K4_KERNELS)
+    out["k4"] = _device_windows(lambda: central_pairwise_mxu(
+        central, friction_w_neighbour, X, ov, 5000), 20, K4_KERNELS, True)
     for tag, engine, force, names in (
             ("tile", TileEngine(pallas=True), adhesion, K3_KERNELS),
             ("central", TileEngine(mxu=True), central, K4_KERNELS)):
@@ -217,16 +302,30 @@ def _one(root):
 
         def step5k():
             sol.take_steps(1, sp.dt, force)
-        per, busy, kernels = device_window(step5k, 20)
-        out[f"step_5k_{tag}"] = {
-            "busy_ms": busy, "kernels": kernels,
-            "kernel_ms": sum(named(per, names).values()),
-            "wall_ms": _wall_ms(step5k, 100)}
+        out[f"step_5k_{tag}"] = {**_device_windows(step5k, 20, names),
+                                 "wall_ms": _wall_ms(step5k, 100)}
+    del sol, X, ov
+
+    # K5 and the 100k growth_w_wall slice.  The tissue contracts as it
+    # runs (its busy time falls by a quarter in 10 steps, and the
+    # candidate count nears NC after some 30), so every profiled window
+    # and the wall windows start from a fresh tissue
+    k5_kernels = ("gabriel_pair_kernel",)
+    with gabriel_after_build(*gabriel_tissue(100_000, dev),
+                             **GABRIEL_100K) as k5:
+        out["k5"] = _device_windows(k5, 10, k5_kernels)
+    engine = GabrielEngine(lattice=True, **GABRIEL_100K)
+    out["step_100k"] = {
+        **_device_windows(
+            lambda: growth_w_wall_step(dev, 100_000, engine, 15), 3,
+            k5_kernels, fresh=True),
+        "wall_ms": _wall_ms(growth_w_wall_step(dev, 100_000, engine, 15),
+                            3)}
     return out
 
 
 def _plans(root):
-    """Device ms of K2 and K4 at other launch plans than their own."""
+    """Device ms of K2, K4 and K5 at other launch plans than their own."""
     root = Path(root).resolve()
     sys.path.insert(0, str(root))
     from unittest import mock
@@ -237,13 +336,13 @@ def _plans(root):
     from yalla_tpu_torch.models import branching as B
     from yalla_tpu_torch.models import growth_w_wall as W
     from yalla_tpu_torch.models import sorting as S
-    from yalla_tpu_torch.ops import central_mxu, lattice_pour
+    from yalla_tpu_torch.ops import (central_mxu, gabriel_pallas,
+                                     lattice_pour)
     from yalla_tpu_torch.ops.common import friction_w_neighbour, grid_dims
     from yalla_tpu_torch.ops.lattice_xla import sort_by_cube
     from yalla_tpu_torch.ops.tile_pallas import TilePlan
-    from yalla_tpu_torch.solvers import Solution
     dev = torch.device("cuda")
-    out = {"root": str(root), "card": card(), "k2": {}, "k4": {}}
+    out = {"root": str(root), "card": card(), "k2": {}, "k4": {}, "k5": {}}
     cfg = bench_config(root / "bench_state.json", "branching_500000")
     engine = bench_engine(cfg)
     X, ov = load_settled(root / ".bench_cache" /
@@ -251,10 +350,8 @@ def _plans(root):
     builds = {"500k": (sort_by_cube(X, ov, 500_000, float(cfg["cube"]),
                                     engine.grid_size, engine.capacity),
                        engine.grid_size, engine.capacity)}
-    h, n = W.half_space_tissue(
-        100_000, Solution(W.Float3, 100_000, device=dev).n_pad)
-    X = W.Float3(*(torch.as_tensor(h[f], device=dev) for f in "xyz"))
-    builds["100k"] = (sort_by_cube(X, X, n, W.r_max, 48, 16), 48, 16)
+    tissue = gabriel_tissue(100_000, dev)
+    builds["100k"] = (sort_by_cube(*tissue, W.r_max, 48, 16), 48, 16)
     for tag, (cs, grid, C) in builds.items():
         gx, gy, gz = grid_dims(grid)
         ms = {}
@@ -279,22 +376,26 @@ def _plans(root):
                                           central, friction_w_neighbour,
                                           X, ov, 5000), 20)
         out["k4"][f"{splits} splits"] = sum(named(per, K4_KERNELS).values())
+    C, NC = GABRIEL_100K["capacity"], GABRIEL_100K["max_candidates"]
+    for brick in ((2, 2, 4), (2, 4, 4), (4, 4, 4), (4, 4, 8), (4, 8, 8)):
+        bz, by, bx = brick
+        plan = gabriel_pallas.GabrielPlan(
+            brick, gabriel_pallas.gabriel_smem_bytes(brick, C, NC),
+            -(-48 // bz) * -(-48 // by) * -(-48 // bx))
+        with mock.patch.object(gabriel_pallas, "gabriel_plan",
+                               lambda *_, plan=plan: plan):
+            with gabriel_after_build(*tissue, **GABRIEL_100K) as k5:
+                out["k5"]["x".join(map(str, brick))] = device_window(k5,
+                                                                     10)[1]
     return out
 
 
 def _metrics(run):
-    """{metric: list of values} of one run; one value for device times,
-    the windows for wall times."""
-    return {"k1_ms": [sum(run["k1"].values())],
-            "k2_ms": [run["k2"]["busy_ms"]],
-            "k3_ms": [sum(run["k3"].values())],
-            "k4_ms": [sum(run["k4"].values())],
-            "busy_500k_ms": [run["step_500k"]["busy_ms"]],
-            "busy_5k_tile_ms": [run["step_5k_tile"]["busy_ms"]],
-            "busy_5k_central_ms": [run["step_5k_central"]["busy_ms"]],
-            "wall_500k_ms": run["step_500k"]["wall_ms"],
-            "wall_5k_tile_ms": run["step_5k_tile"]["wall_ms"],
-            "wall_5k_central_ms": run["step_5k_central"]["wall_ms"]}
+    """{metric: list of values} of one run: the windows of each."""
+    steps = ("500k", "5k_tile", "5k_central", "100k")
+    return {**{f"k{i}_ms": run[f"k{i}"]["windows_ms"] for i in range(1, 6)},
+            **{f"busy_{t}_ms": run[f"step_{t}"]["windows_ms"] for t in steps},
+            **{f"wall_{t}_ms": run[f"step_{t}"]["wall_ms"] for t in steps}}
 
 
 def verdicts(first, second):

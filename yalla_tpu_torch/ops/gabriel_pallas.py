@@ -27,11 +27,15 @@ for ``gabriel_coefficient < 1``.
 
 * ``gabriel_lattice_pallas`` is the kernel wrapper: CUDA tensors go to
   ``csrc/gabriel_pair.cu`` (forces with a device functor only), CPU
-  tensors to ``gabriel_lattice_plain``.
+  tensors to ``gabriel_lattice_plain``.  :func:`gabriel_plan` sizes the
+  kernel's bricks of cubes and their shared memory.
 * ``gabriel_lattice_plain`` is the same function in torch ops, generic
   over the force, over blocks of occupied slots.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,12 +45,86 @@ from .functors import pair_functor, param_array, require, unpack_sums
 from .lattice_xla import lattice_build, stencil_slots
 
 __all__ = ["gabriel_lattice_pallas", "gabriel_lattice_plain",
-           "GABRIEL_MAX_NC"]
+           "gabriel_plan", "GabrielPlan", "GABRIEL_MAX_NC"]
 
-# the kernel's largest per-point candidate array (csrc/gabriel_pair.cu)
+# the largest compact set the wrapper takes
 GABRIEL_MAX_NC = 128
+# csrc/gabriel_pair.cu: threads per block, lanes per live point, the
+# largest staged list (its places take 15 bits of a compact entry), and the
+# shared memory a block may take on the H100 (227 KB; above 48 KB only by
+# opting in)
+GABRIEL_THREADS = 256
+GABRIEL_GROUP = 4
+GABRIEL_MAX_STAGED = 1 << 15
+SMEM_MAX = 232_448
+# bricks (bz, by, bx) of cubes per block, largest first; the plan takes the
+# first whose shared memory fits SMEM_BUDGET (three blocks per SM, each
+# with 1 KB reserved)
+BRICKS = ((4, 4, 4), (2, 4, 4), (2, 2, 4), (2, 2, 2), (1, 2, 2), (1, 1, 2),
+          (1, 1, 1))
+SMEM_BUDGET = 75 * 1024
 # elements per block of the plain version (bounds its memory)
 PAIR_BLOCK = 1 << 21
+
+
+class GabrielPlan(NamedTuple):
+    """Launch plan of the Gabriel lattice kernel: ``brick`` (bz, by, bx)
+    cubes per block, the dynamic shared-memory bytes ``smem`` per block
+    (the kernel opts in above the default 48 KB), and the number of
+    ``blocks`` (ragged bricks at the grid's edge masked)."""
+    brick: tuple
+    smem: int
+    blocks: int
+
+
+def _stride(capacity):
+    """A cube's stride in the kernel's staged list: the capacity rounded up
+    to a power of two."""
+    return 1 << (int(capacity) - 1).bit_length()
+
+
+def gabriel_smem_bytes(brick, capacity, max_candidates):
+    """Shared-memory bytes of one block (``csrc/gabriel_pair.cu``
+    ``smem_bytes``): a 16-byte entry (x, y, z, stable id) per slot of the
+    brick's one-cube halo, a cube's slots strided by the capacity rounded
+    up to a power of two; a live count and a first lattice slot per halo
+    cube; the work list's length; a 16-bit work-list entry per own slot;
+    and a 16-bit compact set of ``max_candidates`` entries per group of
+    lanes."""
+    bz, by, bx = brick
+    H = (bz + 2) * (by + 2) * (bx + 2)
+    B = bz * by * bx
+    return 16 * H * _stride(capacity) + 8 * H + 16 + 2 * B * capacity + \
+        2 * (GABRIEL_THREADS // GABRIEL_GROUP) * max_candidates
+
+
+@functools.lru_cache(maxsize=64)
+def gabriel_plan(grid_size, capacity, max_candidates):
+    """The brick, shared memory and blocks of the Gabriel lattice kernel on
+    a ``grid_size`` grid of ``capacity`` slots per cube with compact sets
+    of ``max_candidates``.  Bricks are clipped to the grid; raises if not
+    even one cube and its halo fit the card's shared memory or the staged
+    list's 15-bit places."""
+    gx, gy, gz = grid_dims(grid_size)
+    C, NC = int(capacity), int(max_candidates)
+    if C < 1 or NC < 1 or min(gx, gy, gz) < 1 or gx * gy * gz * C >= 2 ** 31:
+        raise ValueError(f"gabriel_plan: grid {(gx, gy, gz)}, capacity {C}, "
+                         f"max_candidates {NC}")
+    for bz, by, bx in BRICKS:
+        brick = (min(bz, gz), min(by, gy), min(bx, gx))
+        smem = gabriel_smem_bytes(brick, C, NC)
+        if smem <= SMEM_BUDGET:
+            break
+    bz, by, bx = brick
+    staged = (bz + 2) * (by + 2) * (bx + 2) * _stride(C)
+    if smem > SMEM_MAX or staged > GABRIEL_MAX_STAGED:
+        raise ValueError(
+            f"gabriel_plan: capacity {C} with max_candidates {NC} needs "
+            f"{smem} bytes of shared memory and {staged} staged slots for "
+            f"one cube and its halo, above the card's {SMEM_MAX} bytes or "
+            f"the kernel's {GABRIEL_MAX_STAGED} slots")
+    blocks = -(-gz // bz) * -(-gy // by) * -(-gx // bx)
+    return GabrielPlan(brick, smem, blocks)
 
 
 def _squares(cube_size, gabriel_coefficient):
@@ -161,8 +239,9 @@ def gabriel_lattice_pallas(pw_int, pw_friction, X, old_v, n, cube_size, *,
     """Gabriel lattice wrapper: launches ``csrc/gabriel_pair.cu`` for CUDA
     tensors, runs :func:`gabriel_lattice_plain` for CPU tensors, raises for
     anything else.  ``gabriel_lattice_pallas.launches`` counts kernel
-    launches.  The kernel holds at most ``GABRIEL_MAX_NC`` candidates per
-    point."""
+    launches.  The kernel takes compact sets of at most ``GABRIEL_MAX_NC``
+    and writes the rows of the ids that hold a slot; the rest stay at the
+    zeros the wrapper fills."""
     dev = X.x.device
     kw = dict(grid_size=grid_size, capacity=capacity,
               max_candidates=max_candidates,
@@ -181,8 +260,9 @@ def gabriel_lattice_pallas(pw_int, pw_friction, X, old_v, n, cube_size, *,
         raise ValueError(f"Gabriel lattice kernel: max_candidates {NC} "
                          f"outside [1, {GABRIEL_MAX_NC}]")
     _, gc2 = _squares(cube_size, gabriel_coefficient)
-    lay = lattice_build(X, old_v, n, cube_size, grid_size, capacity, 0)
     gx, gy, gz = grid_dims(grid_size)
+    plan = gabriel_plan((gx, gy, gz), capacity, NC)
+    lay = lattice_build(X, old_v, n, cube_size, grid_size, capacity, 0)
     n_slots = lay.pid.shape[0]
     n_pad = lay.slot_of.shape[0]
     f32 = torch.float32
@@ -190,13 +270,14 @@ def gabriel_lattice_pallas(pw_int, pw_friction, X, old_v, n, cube_size, *,
     chans = [require(getattr(lay.T, f), (n_slots,), f32, dev,
                      f"{what} T.{f}") for f in spec["fields"]] + \
         [require(a, (n_slots,), f32, dev, f"{what} old_v") for a in lay.Tov]
+    pid = require(lay.pid, (n_slots,), torch.int64, dev, f"{what} pid")
     M = len(spec["dF"]) + len(spec["aux"]) + 4
-    out = torch.empty((M + 1, n_pad), dtype=f32, device=dev)
+    out = torch.zeros((M + 1, n_pad), dtype=f32, device=dev)
     lib = _build.library()
     gabriel_lattice_pallas.launches += 1
     _build.check(getattr(lib, spec["entries"]["gabriel"])(
-        _build.pointers(chans), lay.pid.data_ptr(), lay.slot_of.data_ptr(),
-        n_pad, gx, gy, gz, capacity, float(cube_size), gc2, NC,
+        _build.pointers(chans), pid.data_ptr(), n_pad, gx, gy, gz, capacity,
+        float(cube_size), gc2, NC, *plan.brick, plan.smem,
         param_array(spec, params), out.data_ptr(),
         _build.stream_handle(dev)), "Gabriel lattice kernel")
     F, sum_f, sum_v, aux = unpack_sums(out[:M], spec, pw_int, type(X))

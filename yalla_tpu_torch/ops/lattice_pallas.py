@@ -102,10 +102,15 @@ def lattice_plan(grid_size, capacity):
 
 
 def _y_block(gy):
+    """Height of the flag's y blocks: the JAX kernel's where it accepts the
+    grid (``gy % 8 == 0``: the largest multiple of 8 up to
+    ``DEFAULT_Y_BLOCK`` that divides ``gy``), else ``DEFAULT_Y_BLOCK`` rows
+    with a ragged last block (the CUDA kernel takes any grid)."""
     yb = max((DEFAULT_Y_BLOCK // 8) * 8, 8)
+    if gy % 8:
+        return yb
     while gy % yb:
         yb -= 8
-    assert yb >= 8, "grid y extent must be a multiple of 8"
     return yb
 
 
@@ -117,10 +122,12 @@ def extras_block_overflow(layout, cube_size, grid_size, z_block,
     block whose cube range meets the extra's +-1-cube reach in z and y
     (at most 2 x 2 blocks), with at most ``max(cap // 8 * 8, 8)`` extras
     per block (``lattice_pallas._extras_tables``).  This counts the table
-    entries past that cap, so both packages raise on the same states."""
+    entries past that cap, so both packages raise on the same states.
+    Where the JAX kernel refuses the grid (an extent its blocks do not
+    divide) the last block of the axis is ragged."""
     gx, gy, gz = grid_dims(grid_size)
     zb, yb = z_block, _y_block(gy)
-    nz, ny = gz // zb, gy // yb
+    nz, ny = -(-gz // zb), -(-gy // yb)
     cap = max((extras_block_cap // 8) * 8, 8)
     live = layout.epid < layout.slot_of.shape[0]
     cz = cube_coord(layout.E.z, cube_size, gz)

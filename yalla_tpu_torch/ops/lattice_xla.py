@@ -287,12 +287,21 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
     is ignored here."""
     from ..solvers import add_rhs, augment, nonfinite, truncate_aug
     del gen_args, force_r_max
-    assert rebuild_every == 1, "only the per-pass rebuild cadence is ported"
-    assert rebin_m_cap == 0 and not rebin_per_pass, "rebin is not ported"
-    assert x_split == 1, "thin x-cubes are not ported"
-    assert route_movers == 0.0, "mover routing is not ported"
-    assert gen is None, "generic forces are not ported"
-    assert pallas, "the pair pass runs through its kernel wrapper"
+    refused = {
+        "rebuild_every": (rebuild_every != 1,
+                          "only the per-pass rebuild cadence is ported"),
+        "rebin_m_cap": (rebin_m_cap != 0, "rebin is not ported"),
+        "rebin_per_pass": (bool(rebin_per_pass), "rebin is not ported"),
+        "x_split": (x_split != 1, "thin x-cubes are not ported"),
+        "route_movers": (route_movers != 0.0, "mover routing is not ported"),
+        "gen": (gen is not None, "generic forces are not ported"),
+        "pallas": (not pallas,
+                   "the pair pass runs through its kernel wrapper"),
+    }
+    for option, (asked, why) in refused.items():
+        if asked:
+            raise NotImplementedError(f"lattice_heun_steps({option}=...): "
+                                      f"{why}")
     from .lattice_pallas import lattice_pairwise_pallas
     gs, C = grid_size, capacity
 
