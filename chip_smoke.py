@@ -151,7 +151,39 @@ own line:
 20. the six grid examples (``GridEngine``, plain torch operations) on the
     card at their published sizes for ``GRID_STEPS`` steps each: no
     kernel launched, every flag 0, the state finite, ms a step with its
-    frames and without.
+    frames and without;
+21. the lattice pair kernel (K1) with the ``intercalation_w_gradient``
+    functor (16 channels: the example's fields and the seven polarity
+    precompute channels, with old_v) against ``lattice_pairwise_plain``
+    on the example's initial state (the 11,557 cells of
+    ``examples/sphere_ic.vtk`` in 151,552 rows, the lattice
+    ``solver="auto"`` picks: grid 32, C 8): ``sum_f``, ``epi_nbs`` and
+    ``mes_nbs`` exact, the rest within ``RTOL``, ``ATOL`` and ``COND`` as
+    in phase 17; its plan beside branching's on that lattice (branching's
+    plan of the 500k lattice unchanged), the work per cell, ms per pass of
+    the wrapper and the plain version, device ms, bound and share,
+    registers and spills (the branching functor's K1 is held against its
+    plain version at its states in phases 3, 15 and 16, as before);
+22. the intercalation_w_gradient example at full width: ``IWG_STEPS``
+    steps of its ``step`` (rewiring, the Heun step with the link forces
+    and the precompute, flags checked, divisions) after one warm-up, K1
+    and K2 launched twice a step and no other kernel, the state finite;
+    ms a step, the cells gained, device ms and kernels a step by the
+    profiler, and ms a step of ``run`` with a VTK frame each step;
+23. one step of that example from its initial state on the card and on
+    the CPU with the same draws: links and divisions equal, every field
+    within the reference's ``isclose`` (phi of the pole cells left out);
+24. the other nine new examples (sorting, sorting_prot, intercalation,
+    passive_growth, lineage_tracing, model_features_sequential_addition,
+    growth_w_wall with K5, teapot, write_vtk_w_mask) from one initial
+    state on the card against the CPU with the same draws: links and
+    counts equal, every field within ``isclose`` after 2 steps, the same
+    teapot points kept, the same masked VTK bytes;
+25. their runs on the card at their published sizes, frames into a
+    temporary directory, the launch counts set to 0 just before and read
+    just after (growth_w_wall: K5 and K2 twice a step; the others none),
+    flags 0, the state finite; ms a step with frames and without; the
+    teapot's 70,000-point cut.
 
 It then prints the kernels' JSON record (each kernel's ``device_ms`` is
 its profiler time on its path's main shapes) and, last, the device
@@ -247,6 +279,21 @@ OPS_NEAR = {"gradient_diffusion": 0, "bending_layer": 110,
             "relu_migration": 47, "wnt_diffusion": 5}
 OPS_WNT_ALIGN = 38
 OPS_PULL, OPS_PUSH = 39, 42
+# the lattice kernel's intercalation_w_gradient functor (csrc/forces.cuh
+# IntercalationWGradient), beside OPS_DIST for every candidate: per pair
+# in reach its distance again and its ungated part (friction, band,
+# forces, counts); per pair with a mesenchymal i the diffusion of w and
+# f; per pair of epithelial cells the bending
+OPS_PER_PAIR["intercalation_w_gradient"] = OPS_DIST + 37
+OPS_IWG_MES, OPS_IWG_BEND = 6, 62
+# the intercalation_w_gradient example at full width: steps timed, and
+# the steps of its GPU-against-CPU check
+IWG_STEPS = 10
+# steps of the growth_w_wall example on each engine of phase 26
+GWW_STEPS = 14
+# the extras sidecar's rows for phase 21's C 4 layout of the embryo (174
+# of its cells overflow 4 a cube)
+IWG_EXTRAS_CAP = 256
 
 
 def cuda_ms(fn, reps):
@@ -800,6 +847,37 @@ def gabriel_overflow_check(dev):
     return err
 
 
+def gabriel_bound(X, ov, n, got, kept, gs, C):
+    """(bound ms, bound by, bytes, bytes of stable ids, operations) of one
+    K5 pass on the state's first ``n`` points, with ``got`` its outputs
+    and ``kept`` its kept pair ends.  The work this state needs: every
+    live slot of the 27 cubes tested for reach, every within-reach
+    candidate against every other (the midpoint test), the force on every
+    kept pair.  The bytes: the occupancy as the lattice holds it, each
+    cube's live stable ids and the empty slot that ends them (8 bytes
+    each; a full cube has none), the live points' positions and old_v,
+    and the 8 rows written (F, sum_f, sum_v and the candidate flag)."""
+    import torch
+    from yalla_tpu_torch.models import growth_w_wall as W
+    from yalla_tpu_torch.ops.common import cube_ids
+    n_pad = X.x.shape[0]
+    cand = torch.zeros(n, dtype=torch.float64, device=X.x.device)
+    P = torch.stack([a[:n] for a in X], 1)
+    for i0 in range(0, n, 1024):
+        d2 = ((P[i0:i0 + 1024, None, :] - P[None, :, :]) ** 2).sum(-1)
+        cand[i0:i0 + 1024] = (d2 < W.r_max ** 2).sum(1) - 1
+    del P
+    live_cube = cube_ids(X, n, W.r_max, gs)[:n]
+    n_ops = stencil_candidates(live_cube, gs, gs, gs) * OPS_DIST + \
+        float((cand ** 2).sum()) * OPS_MIDPOINT + \
+        kept * OPS_PER_PAIR["wall_relu"]
+    per_cube = torch.bincount(live_cube, minlength=gs ** 3)
+    id_bytes = 8 * int(torch.clamp(per_cube + 1, max=C).sum())
+    n_bytes = id_bytes + nbytes(*X, *ov) * n // n_pad + nbytes(
+        *got[0], got[1], *got[2], got[3]["__err_gabriel_candidates"])
+    return (*bound(n_bytes, n_ops), n_bytes, id_bytes, n_ops)
+
+
 def gabriel_kernel_check(dev):
     """Phase 10: K5 against its plain version on the 100k tissue and where
     its compact set overflows, and K2 on its lattice build.  Returns ((max
@@ -810,7 +888,6 @@ def gabriel_kernel_check(dev):
                                                 gabriel_after_build,
                                                 gabriel_tissue, named)
     from yalla_tpu_torch.models import growth_w_wall as W
-    from yalla_tpu_torch.ops.common import cube_ids
     from yalla_tpu_torch.ops.gabriel_pallas import (gabriel_lattice_pallas,
                                                     gabriel_lattice_plain)
     from yalla_tpu_torch.ops.lattice_pour import pour_pallas
@@ -834,29 +911,9 @@ def gabriel_kernel_check(dev):
                        exact)
     kept = int(want[1][:n].sum())
     ms, plain_ms = cuda_ms(k5, 20), cuda_ms(k5_plain, 3)
-    # the work this tissue needs: every live slot of the 27 cubes tested
-    # for reach, every within-reach candidate against every other (the
-    # midpoint test), the force on every kept pair
-    cand = torch.zeros(n, dtype=torch.float64, device=dev)
-    P = torch.stack([a[:n] for a in X], 1)
-    for i0 in range(0, n, 1024):
-        d2 = ((P[i0:i0 + 1024, None, :] - P[None, :, :]) ** 2).sum(-1)
-        cand[i0:i0 + 1024] = (d2 < W.r_max ** 2).sum(1) - 1
-    del P
     gs, C = GABRIEL_100K["grid_size"], GABRIEL_100K["capacity"]
-    live_cube = cube_ids(X, n, W.r_max, gs)[:n]
-    n_ops = stencil_candidates(live_cube, gs, gs, gs) * OPS_DIST + \
-        float((cand ** 2).sum()) * OPS_MIDPOINT + \
-        kept * OPS_PER_PAIR["wall_relu"]
-    # the bytes: the occupancy as the lattice holds it, each cube's live
-    # stable ids and the empty slot that ends them (8 bytes each; a full
-    # cube has none), the live points' positions and old_v, and the 8 rows
-    # written (F, sum_f, sum_v and the candidate flag)
-    per_cube = torch.bincount(live_cube, minlength=gs ** 3)
-    id_bytes = 8 * int(torch.clamp(per_cube + 1, max=C).sum())
-    n_bytes = id_bytes + nbytes(*X, *ov) * n // n_pad + nbytes(
-        *got[0], got[1], *got[2], got[3]["__err_gabriel_candidates"])
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_ms, bound_by, n_bytes, id_bytes, n_ops = gabriel_bound(
+        X, ov, n, got, kept, gs, C)
     build_ms = cuda_ms(lambda: lattice_build(X, ov, n, W.r_max, gs, C), 20)
     # every kernel and fill the wrapper launches after its lattice build
     with gabriel_after_build(X, ov, n, **GABRIEL_100K) as k5_built:
@@ -1471,20 +1528,638 @@ def example_kernel_checks(dev, states):
     return out
 
 
+def iwg_kernel_check(dev):
+    """Phase 21: K1 with the ``intercalation_w_gradient`` functor against
+    ``lattice_pairwise_plain`` on the example's initial state (the
+    11,557-cell embryo of ``sphere_ic.vtk`` in 151,552 rows, the lattice
+    ``solver="auto"`` picks for it, a seeded old_v), the 16 channels the
+    example's augmented state gives the build; then the same cells at C 4
+    with an extras sidecar of ``IWG_EXTRAS_CAP`` rows.  Exact, in the
+    lattice's slots and in the extras' rows: ``sum_f``, ``epi_nbs``,
+    ``mes_nbs`` and every ``__err_*`` flag (the same keys on both sides;
+    the build's dropped and out-of-grid counts beside them, 0 on the
+    example's lattice); the other sums within ``RTOL`` of the plain
+    value plus ``ATOL`` x max(1, max|plain|) plus ``COND`` of the slot's
+    sum of term magnitudes (phi's bending term divides by sin theta).
+    Prints the plan (beside branching's on the same lattice), the work,
+    ms per pass of the wrapper and the plain version, the device time by
+    the profiler, the bound, registers and spills.  First K2 on the same
+    build (20 rows: the augmented fields, old_v, id and target) against
+    its plain version, bit for bit, and its device time.  Returns the
+    kernel's record."""
+    import torch
+    from yalla_tpu_torch.dtypes import Float3
+    from yalla_tpu_torch.examples import intercalation_w_gradient as m
+    from yalla_tpu_torch.ops.common import (friction_w_neighbour,
+                                            grid_dims)
+    from yalla_tpu_torch.ops.functors import PAIR_FUNCTORS
+    from yalla_tpu_torch.ops.lattice_pallas import (lattice_pairwise_pallas,
+                                                    lattice_pairwise_plain,
+                                                    lattice_plan)
+    from yalla_tpu_torch.ops.lattice_pour import pour_pallas
+    from yalla_tpu_torch.ops.lattice_xla import lattice_build, sort_by_cube
+    from yalla_tpu_torch.solvers import augment
+    sol = m.setup(dev)
+    sol._ensure_device()
+    e, n, cube = sol.engine, sol.d_n, sol.cube_size
+    gs, C = e.grid_size, e.capacity
+    dims = grid_dims(gs)
+    n_slots = dims[0] * dims[1] * dims[2] * C
+    n_chans = len(PAIR_FUNCTORS["intercalation_w_gradient"]["fields"]) + 3
+    plan = lattice_plan(dims, C, n_chans)
+    if tuple(lattice_plan(64, 8, 12)) != ((2, 4, 8), 113_316, 4096):
+        raise AssertionError("the branching plan of the 500k lattice moved")
+    print(f"K1 intercalation_w_gradient: {n} cells in {sol.n_pad} rows, "
+          f"engine {e}; plan {plan} at {n_chans} channels (branching's at "
+          f"12 on this lattice: {lattice_plan(dims, C, 12)})")
+    g = torch.Generator().manual_seed(2)
+    ov = Float3(*(0.01 * torch.randn(sol.n_pad, generator=g).to(dev)
+                  for _ in range(3)))
+    X = augment(sol.d_X, n, m.polarity_precompute)
+    # K2 on this build: 15 fields, old_v, the id and the target (K 20)
+    cs = sort_by_cube(X, ov, n, cube, gs, C)
+    check_pour(f"intercalation_w_gradient (K {cs.S.shape[0]})", cs, gs, C)
+    pour_dev = device_ms(lambda: pour_pallas(cs.S, cs.row_starts, gs, C))
+    print(f"K2 pour device time per intercalation_w_gradient build "
+          f"(torch.profiler): {pour_dev:.4f} ms")
+    del cs
+    tag = "K1 lattice_pair[intercalation_w_gradient]"
+
+    def mag(*args):
+        dF, aux = m.force(*args)
+        return type(dF)(*(a.abs() for a in dF)), aux
+
+    def compare(label, lay, kw):
+        """The kernel against the plain version on one layout: (max abs
+        err, {flag: sum})."""
+        def run(force, fn):
+            return fn(force, friction_w_neighbour, lay, n, cube, **kw)
+        got = run(m.force, lattice_pairwise_pallas)
+        want = run(m.force, lattice_pairwise_plain)
+        mag_outs = run(mag, lattice_pairwise_plain)
+        torch.cuda.synchronize()
+        if len(got) != len(want):
+            raise AssertionError(f"{tag} {label}: {len(got)} outputs "
+                                 f"against {len(want)}")
+        # the build's flags, then the lattice's slots and the extras
+        # sidecar's rows: epi_nbs, mes_nbs, sum_f and every flag exact
+        flags = {"__err_lattice_dropped": float(lay.n_dropped),
+                 "__err_out_of_grid": float(lay.n_oob)}
+        parts = [("", got, want, mag_outs[0])]
+        if len(want) == 5:
+            parts.append(("E.", got[4], want[4], mag_outs[4][0]))
+        err = 0.0
+        for part, g_out, w_out, mags in parts:
+            if g_out[3].keys() != w_out[3].keys():
+                raise AssertionError(f"{tag} {label} {part}aux: keys "
+                                     f"{sorted(g_out[3])} against "
+                                     f"{sorted(w_out[3])}")
+            for k in w_out[3]:
+                if not torch.equal(g_out[3][k], w_out[3][k]):
+                    raise AssertionError(f"{tag} {label}: {part}{k} "
+                                         f"differs")
+                if k.startswith("__err_"):
+                    flags[part + k] = float(g_out[3][k].sum())
+            if not torch.equal(g_out[1], w_out[1]):
+                raise AssertionError(f"{tag} {label}: {part}sum_f differs")
+            for f, x, y, c in zip(w_out[0]._fields, g_out[0], w_out[0],
+                                  mags):
+                tol = RTOL * y.abs() \
+                    + ATOL * max(1.0, float(y.abs().max())) + COND * c
+                bad = (x - y).abs() > tol
+                err = max(err, float((x - y).abs().max()))
+                if bool(bad.any()):
+                    raise AssertionError(
+                        f"{tag} {label} {part}F.{f}: kernel and plain "
+                        f"disagree (max abs err "
+                        f"{float((x - y).abs().max()):g})")
+            err = max(err, compare_sums(
+                f"{tag} {label} {part}sum_v",
+                {f"v{c}": x for c, x in enumerate(g_out[2])},
+                {f"v{c}": x for c, x in enumerate(w_out[2])}, set()))
+        return err, flags
+
+    # the example's lattice, no cell dropped; then the same cells at C
+    # 4 with an extras sidecar (the IC's fullest cubes hold 6), so that
+    # the extras' rows and their flag are held as well
+    lay = lattice_build(X, ov, n, cube, gs, C, e.extras_cap)
+    if int(lay.n_dropped) or int(lay.n_oob):
+        raise AssertionError("K1 intercalation_w_gradient: the build "
+                             "dropped cells")
+    kw = dict(grid_size=gs, capacity=C, z_block=e.z_block,
+              extras_block_cap=e.extras_block_cap)
+    err, flags = compare(f"C {C}", lay, kw)
+    lay4 = lattice_build(X, ov, n, cube, gs, 4, IWG_EXTRAS_CAP)
+    err4, flags4 = compare("C 4 + extras", lay4, dict(kw, capacity=4))
+    print(f"{tag} at C 4 with extras ({int(lay4.n_extras)} cells in the "
+          f"sidecar, extras_cap {IWG_EXTRAS_CAP}): sum_f, epi_nbs, "
+          f"mes_nbs and the flags {flags4} exact, max abs err {err4:.3g}")
+    if "E.__err_extras_block" not in flags4 or any(flags.values()):
+        raise AssertionError(f"{tag}: flags {flags} at C {C}, {flags4} at "
+                             f"C 4")
+    del lay4
+
+    def k1():
+        return lattice_pairwise_pallas(m.force, friction_w_neighbour, lay, n,
+                                       cube, **kw)
+
+    def plain(force=m.force):
+        return lattice_pairwise_plain(force, friction_w_neighbour, lay, n,
+                                      cube, **kw)
+    want = plain()
+    ms, plain_ms = cuda_ms(k1, 20), cuda_ms(plain, 3)
+    per = profiled_ms(k1, ["lattice_pair_kernel"], 20)
+    dev_ms = sum(per.values())
+    # the work this layout needs: the live cells' 16 channels and the
+    # occupancy read, 13 sums per slot written; every live cell of the 27
+    # cubes tested for reach, every pair in reach (the friction sum counts
+    # them) its ungated part, the pairs with a mesenchymal i their
+    # diffusion, the epithelial pairs their bending
+    live = lay.pid < lay.slot_of.shape[0]
+    n_live = int(live.sum())
+    candidates = stencil_candidates(
+        torch.nonzero(live).squeeze(1) // C, *dims)
+    in_reach = float(want[1].sum())
+    mes_pairs = float((want[1] * (lay.T.ctype == 0) * live).sum())
+    epi_pairs = float((want[3]["epi_nbs"] * (lay.T.ctype == 1)).sum())
+    ops = candidates * OPS_DIST \
+        + in_reach * OPS_PER_PAIR["intercalation_w_gradient"] \
+        + mes_pairs * OPS_IWG_MES + epi_pairs * OPS_IWG_BEND
+    bound_ms, bound_by = bound(n_live * n_chans * 4 + n_slots
+                               + n_slots * 13 * 4, ops)
+    print(f"{tag}: {candidates / n_live:.2f} live candidates and "
+          f"{in_reach / n_live:.2f} partners in reach per cell "
+          f"({mes_pairs:g} pairs with a mesenchymal i, {epi_pairs:g} "
+          f"epithelial pairs); sum_f, epi_nbs, mes_nbs and the flags "
+          f"{flags} exact, max abs err "
+          f"{err:.3g} (rtol {RTOL}, atol {ATOL} x max(1, max|plain|) + "
+          f"{COND} x sum|terms|); {ms:.4f} ms/pass vs plain {plain_ms:.4f}; "
+          f"device {dev_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}, "
+          f"{ops:.4g} operations), share {bound_ms / dev_ms:.2%}")
+    ptxas_report(["IntercalationWGradient"])
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def to_device(draws, device):
+    """Randoms (None, a tensor or a tuple of them, nested) on
+    ``device``."""
+    import torch
+    if draws is None:
+        return None
+    if torch.is_tensor(draws):
+        return draws.to(device)
+    moved = [to_device(d, device) for d in draws]
+    return type(draws)(*moved) if hasattr(draws, "_fields") \
+        else tuple(moved)
+
+
+def iwg_full_width(dev):
+    """Phase 22: the intercalation_w_gradient example at full width on the
+    card: ``setup`` (the 11,557 cells of ``sphere_ic.vtk`` in 151,552
+    rows on the lattice ``solver="auto"`` picks), one warm-up step, then
+    ``IWG_STEPS`` steps of ``step`` (rewiring, the Heun step with the link
+    forces, its flags checked, divisions) with the launch counts set to 0
+    just before and read just after: K1 and K2 launched twice a step, no
+    other kernel, the state finite.  Prints ms a step, the cells gained,
+    the device time and kernels a step by the profiler, and ms a step of
+    ``run`` with its VTK frame a step.  Returns the launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from yalla_tpu_torch.examples import intercalation_w_gradient as m
+    from yalla_tpu_torch.kernel_profile import device_window
+    sol = m.setup(dev)
+    n_0 = sol.d_n
+    state = m.start(sol)
+    m.step(sol, state)                                  # warm-up
+    wrappers = reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(IWG_STEPS):
+        m.step(sol, state)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / IWG_STEPS
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = {k: 2 * IWG_STEPS if k in ("pour", "lattice_pair") else 0
+            for k in counts}
+    if counts != want:
+        raise AssertionError(f"intercalation_w_gradient: launches {counts} "
+                             f"in {IWG_STEPS} steps, expected {want}")
+    h = sol.copy_to_host()
+    for f, a in zip(h._fields, h):
+        if not np.isfinite(a[:sol.d_n]).all():
+            raise AssertionError(f"intercalation_w_gradient field {f} is "
+                                 f"not finite")
+    flags = {k: float(v.max()) for k, v in sol.aux.items()
+             if k.startswith("__err_")}
+    per, busy, kernels = device_window(lambda: m.step(sol, state), 3)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    print(f"intercalation_w_gradient at full width: {n_0} -> {sol.d_n} "
+          f"cells in {sol.n_pad} rows after {IWG_STEPS + 1 + 4} steps, "
+          f"engine {sol.engine}; flags {flags} (checked every step), state "
+          f"finite; launches {counts} in {IWG_STEPS} steps; "
+          f"{step_s * 1e3:.3f} ms a step without output; device {busy:.3f} "
+          f"ms and {kernels:.0f} kernels a step (torch.profiler), the most: "
+          + "; ".join(f"{v:.3f} ms {k[:70]}" for k, v in top))
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
+            contextlib.redirect_stdout(io.StringIO()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.run(sol, IWG_STEPS - 1)
+        torch.cuda.synchronize()
+        run_s = (time.perf_counter() - t0) / IWG_STEPS
+        files = len(list(Path("output").glob(
+            "intercalation_w_gradient_*.vtk")))
+    if files != IWG_STEPS:
+        raise AssertionError(f"intercalation_w_gradient: {files} files in "
+                             f"{IWG_STEPS} steps of run")
+    print(f"intercalation_w_gradient run: {IWG_STEPS} steps with a VTK "
+          f"frame each, {run_s * 1e3:.3f} ms a step, {sol.d_n} cells")
+    return counts
+
+
+def same_fields(tag, a_sol, b_sol, skip_poles=False):
+    """Equal counts and every field of the active cells of two Solutions
+    (card, CPU) within the reference's ``isclose`` (phi of the cells on a
+    pole left out where ``skip_poles``)."""
+    import numpy as np
+    n = a_sol.get_d_n()
+    if n != b_sol.get_d_n():
+        raise AssertionError(f"{tag}: {n} cells on the card, "
+                             f"{b_sol.get_d_n()} on the CPU")
+    ha, hb = a_sol.copy_to_host(), b_sol.copy_to_host()
+    for f in ha._fields:
+        a, b = getattr(ha, f)[:n], getattr(hb, f)[:n]
+        keep = np.ones(n, bool)
+        if skip_poles and f == "phi":
+            keep = np.abs(np.sin(hb.theta[:n].astype(np.float64))) >= 1e-6
+        if not (np.abs(a - b) <= 1e-6 + 1e-2 * np.abs(b))[keep].all():
+            raise AssertionError(f"{tag} field {f}: GPU and CPU disagree "
+                                 f"(max abs err "
+                                 f"{np.abs(a - b)[keep].max():g})")
+
+
+def example(name):
+    import importlib
+    return importlib.import_module(f"yalla_tpu_torch.examples.{name}")
+
+
+# each example's initial state on the card, made once: name -> (Solution,
+# snapshot, seconds its setup took)
+SETUPS = {}
+
+
+def example_setup(name, dev):
+    """(a fresh copy of example ``name``'s initial state on ``dev``, the
+    seconds its ``setup`` took on the card): the setup runs once, with the
+    initial conditions' generator seeded (growth_w_wall's 101-step
+    relaxation on the gather path is the longest), and an automatic
+    engine is picked then."""
+    import torch
+    from yalla_tpu_torch import inits
+    if name not in SETUPS:
+        inits.set_seed(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        src = example(name).setup("cuda")
+        src.validate()
+        torch.cuda.synchronize()
+        SETUPS[name] = (src, snapshot(src), time.perf_counter() - t0)
+    src, snap, seconds = SETUPS[name]
+    return solution_at(src, snap, dev), seconds
+
+
+def steps_gpu_vs_cpu(dev, name, n_steps, t0, n_compare, per_step, g):
+    """``n_compare`` steps of example ``name`` from step ``t0`` of a run of
+    ``n_steps`` on the card and on the CPU: one initial state (its
+    ``setup`` on the card, the initial conditions' generator seeded,
+    copied to the CPU), the same draws given to both (``m.draw`` on the
+    CPU state from ``g``).  The kernels launched on the card are
+    ``per_step`` a step; links and counts equal, every field within the
+    reference's ``isclose`` (phi of the cells on a pole left out)."""
+    import torch
+    m = example(name)
+    sols = {d: example_setup(name, d)[0] for d in (dev, "cpu")}
+    states = {d: m.start(s, n_steps) for d, s in sols.items()}
+    for state in states.values():
+        state.t = t0
+    wrappers = kernel_wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    for _ in range(n_compare):
+        draws = m.draw(sols["cpu"], states["cpu"], g)
+        for d, s in sols.items():
+            m.step(s, states[d], to_device(draws, d))
+    counts = {k: w.launches - before[k] for k, w in wrappers.items()}
+    want = {k: per_step.get(k, 0) * n_compare for k in counts}
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts} in {n_compare} "
+                             f"steps on the card, expected {want}")
+    links = {d: getattr(st, "links", None) for d, st in states.items()}
+    if links[dev] is not None and not (
+            torch.equal(links[dev].d_a.cpu(), links["cpu"].d_a) and
+            torch.equal(links[dev].d_b.cpu(), links["cpu"].d_b)):
+        raise AssertionError(f"{name}: links differ between the card and "
+                             f"the CPU")
+    same_fields(name, sols[dev], sols["cpu"], skip_poles=True)
+    print(f"{name}: {n_compare} steps on the GPU from step {t0}, "
+          f"{sols['cpu'].get_d_n()} cells on both"
+          + (", links equal" if links[dev] is not None else "")
+          + f", every field within atol 1e-6 + rtol 1e-2 of the CPU plain "
+          f"path (phi of the cells on a pole left out); launches {counts}")
+
+
+def iwg_gpu_vs_cpu(dev):
+    """Phase 23: one step of the intercalation_w_gradient example from its
+    initial state on the card and on the CPU (:func:`steps_gpu_vs_cpu`):
+    K1 and K2 twice on the card, the links and divisions equal."""
+    import torch
+    steps_gpu_vs_cpu(dev, "intercalation_w_gradient", None, 0, 1,
+                     {"lattice_pair": 2, "pour": 2},
+                     torch.Generator().manual_seed(5))
+
+
+# the other stepping examples of the last ten on the card: name -> (run's
+# n_steps, the step the card-against-CPU steps start at, the kernels
+# launched a step on the card)
+MORE_RUNS = {
+    "sorting": (EX_STEPS - 1, 0, {}),
+    "sorting_prot": (EX_STEPS - 1, 0, {}),
+    "intercalation": (EX_STEPS - 1, 0, {}),
+    # divisions start after step 100
+    "passive_growth": (EX_STEPS - 1, 101, {}),
+    "lineage_tracing": (EX_STEPS - 1, 101, {}),
+    # 5 parts of 4 steps; steps 15 and 16: part 4's last (divisions),
+    # part 5's first (protrusions)
+    "model_features_sequential_addition": (3, 15, {}),
+    "growth_w_wall": (EX_STEPS - 1, 0, {"gabriel_pair": 2, "pour": 2}),
+}
+
+
+def more_examples_gpu_vs_cpu(dev):
+    """Phase 24: each of ``MORE_RUNS``, 2 steps card against CPU
+    (:func:`steps_gpu_vs_cpu`; growth_w_wall on K5 on the card); teapot's
+    cut of its 70,000-point cuboid (the same points kept) and
+    write_vtk_w_mask's file (the same bytes)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    from yalla_tpu_torch import inits
+    g = torch.Generator().manual_seed(7)
+    for name, (n_steps, t0, per_step) in MORE_RUNS.items():
+        steps_gpu_vs_cpu(dev, name, n_steps, t0, 2, per_step, g)
+    # teapot: the same cut on both devices' points
+    m = example("teapot")
+    kept = {}
+    for d in (dev, "cpu"):
+        inits.set_seed(3)
+        points, mesh = m.setup(d)
+        t0 = time.perf_counter()
+        kept[d] = (m.cut(points, mesh), points.d_X.x[:m.cut(points, mesh)]
+                   .cpu())
+        cut_s = time.perf_counter() - t0
+    if kept[dev][0] != kept["cpu"][0] or \
+            not torch.equal(kept[dev][1], kept["cpu"][1]):
+        raise AssertionError("teapot: the card's cut differs from the CPU's")
+    print(f"teapot: {points.h_n} of the cuboid's points kept on both "
+          f"devices, the same points ({cut_s * 1e3:.1f} ms for two cuts on "
+          f"the CPU state)")
+    # write_vtk_w_mask: the same bytes from either device
+    m = example("write_vtk_w_mask")
+    data = {}
+    for d in (dev, "cpu"):
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
+                contextlib.redirect_stdout(io.StringIO()):
+            m.main(device=d)
+            data[d] = [p.read_bytes() for p in
+                       sorted(Path("output").glob("test_vtk_*.vtk"))]
+    if not data[dev] or data[dev] != data["cpu"]:
+        raise AssertionError("write_vtk_w_mask: the card's file differs")
+    print(f"write_vtk_w_mask: the card's file equals the CPU's "
+          f"({len(data[dev][0])} bytes)")
+
+
+def k5_example_check(sol, capacity=None):
+    """K5 against its plain version at a growth_w_wall example's state on
+    the card (``sol``) on its growth engine (grid 64, C ``CAPACITY`` = 16,
+    NC 100), or at ``capacity`` cells a cube: ``sum_f`` and the flags
+    exact, the rest within ``compare_sums``'s tolerance; ms per pass of
+    the wrapper (its lattice build included) and the plain version,
+    device ms after the build, the bound.  Returns the kernel's
+    record."""
+    import torch
+    from yalla_tpu_torch.kernel_profile import (device_window,
+                                                gabriel_after_build)
+    from yalla_tpu_torch.models import growth_w_wall as W
+    from yalla_tpu_torch.ops.gabriel_pallas import (gabriel_lattice_pallas,
+                                                    gabriel_lattice_plain)
+    e = sol.engine
+    engine = dict(grid_size=e.grid_size, capacity=capacity or e.capacity,
+                  max_candidates=e.max_candidates)
+    X, ov, n = sol.d_X, sol.d_old_v, sol.get_d_n()
+    args = (W.relu_force, W.wall_friction, X, ov, n, W.r_max)
+
+    def k5():
+        return gabriel_lattice_pallas(*args, **engine)
+
+    def k5_plain():
+        return gabriel_lattice_plain(*args, **engine)
+    got, want = k5(), k5_plain()
+    torch.cuda.synchronize()
+    flags = {k: float(v.max()) for k, v in want[3].items()}
+    if any(flags.values()):
+        raise AssertionError(f"K5 growth_w_wall: flags set: {flags}")
+    err = compare_sums("K5 growth_w_wall", flatten(got, "", n),
+                       flatten(want, "", n), {"sum_f", *want[3]})
+    kept = int(want[1][:n].sum())
+    ms, plain_ms = cuda_ms(k5, 20), cuda_ms(k5_plain, 3)
+    bound_ms, bound_by, n_bytes, _, n_ops = gabriel_bound(
+        X, ov, n, got, kept, engine["grid_size"], engine["capacity"])
+    with gabriel_after_build(X, ov, n, **engine) as k5_built:
+        _, dev_ms, n_kernels = device_window(k5_built, 10)
+    print(f"K5 at the growth_w_wall example's state ({n} cells in "
+          f"{sol.n_pad} rows, grid {engine['grid_size']}, C "
+          f"{engine['capacity']}, NC {engine['max_candidates']}): {kept} "
+          f"kept pair ends, sum_f and flags exact, max abs err {err:.3g}; "
+          f"{ms:.4f} ms/pass with its build vs plain {plain_ms:.4f}; device "
+          f"{dev_ms:.4f} ms after the build in {n_kernels:g} kernels; bound "
+          f"{bound_ms:.6f} ms ({bound_by}: {n_bytes / 1e6:.3f} MB, "
+          f"{n_ops / 1e6:.3f} MFLOP), share {bound_ms / dev_ms:.2%}")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def gww_capacity(dev):
+    """Phase 26: the growth_w_wall example's growth lattice holds
+    ``CAPACITY`` = 16 cells a cube, where the JAX example leaves the
+    engine's 8.  From one relaxed state (:func:`example_setup`),
+    ``GWW_STEPS`` steps with the same draws (made on the card from a
+    seeded generator) on three engines: the gather Gabriel path
+    (``lattice=False``, plain torch, which reads no capacity), K5 at C 16
+    and K5 at C 8.  Prints, for each, the most cells in one cube of the
+    64-cube grid in the state each step starts from, counted by
+    ``torch.bincount`` (no kernel), and the step at which the C 8 run's
+    flags raise (the run stops there).  K5 at C 8 against its plain
+    version on the relaxed state, where 8 still hold, with its times
+    (:func:`k5_example_check`).  Returns K5's C 8 record."""
+    import dataclasses
+
+    import torch
+    from yalla_tpu_torch.ops.common import cube_ids
+    from yalla_tpu_torch.solvers import SimulationError
+    m = example("growth_w_wall")
+    src = example_setup("growth_w_wall", dev)[0]
+    gs = src.engine.grid_size
+
+    def fullest(sol):
+        n = sol.get_d_n()
+        return int(torch.bincount(
+            cube_ids(sol.d_X, n, sol.cube_size, gs)[:n]).max())
+    relaxed = fullest(src)
+    snap = snapshot(src)
+    runs = {"gather": dataclasses.replace(src.engine, lattice=False),
+            "C 16": dataclasses.replace(src.engine, capacity=16),
+            "C 8": dataclasses.replace(src.engine, capacity=8)}
+    sols, states, seen, raised = {}, {}, {}, None
+    for k, engine in runs.items():
+        sols[k] = solution_at(src, snap, dev, engine)
+        states[k], seen[k] = m.start(sols[k]), []
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    for t in range(GWW_STEPS):
+        draws = m.draw(sols["gather"], states["gather"], g)
+        for k in list(sols):
+            seen[k].append(fullest(sols[k]))
+            try:
+                m.step(sols[k], states[k], draws)
+            except SimulationError as err:
+                if k != "C 8" or "lattice_dropped" not in str(err):
+                    raise
+                raised = (t, str(err))
+                del sols[k]
+    if "C 16" not in sols or "gather" not in sols:
+        raise AssertionError("growth_w_wall: the gather or C 16 run "
+                             "stopped")
+    print(f"growth_w_wall capacity: the relaxed state's fullest cube holds "
+          f"{relaxed} cells; the fullest cube at the start of steps 0-"
+          f"{GWW_STEPS - 1} (the same draws on each engine): "
+          + "; ".join(f"{k}: {v}" for k, v in seen.items())
+          + "; the C 8 run's flags "
+          + (f"raised at step {raised[0]} ({raised[1][:90]})" if raised
+             else f"stayed 0 for {GWW_STEPS} steps"))
+    if relaxed > 8:
+        raise AssertionError(f"growth_w_wall: {relaxed} cells in a cube "
+                             f"of the relaxed state")
+    return k5_example_check(src, capacity=8)
+
+
+def more_example_runs(dev):
+    """Phase 25: each of ``MORE_RUNS``'s ``run`` on the card at its
+    published size (from :func:`example_setup`: growth_w_wall's
+    relaxation on the gather Gabriel path, passive_growth's ball relaxed
+    on K3), its
+    frames written into a temporary directory, the launch counts set to 0
+    just before ``run`` and read just after (growth_w_wall: K5 and K2
+    twice a step, the others no kernel), the state finite; ms a step with
+    its frames, then as many steps without output from the table's start
+    step (the steps with draws from the run's generators on the card);
+    teapot's cut of 70,000 points and its two frames; K5 against its
+    plain version at growth_w_wall's state after its run
+    (:func:`k5_example_check`).  Returns ({kernel: launches}, K5's
+    record at that state)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from yalla_tpu_torch import inits
+    launches = {}
+    for name, (n_steps, t0, per_step) in MORE_RUNS.items():
+        m = example(name)
+        sol, setup_s = example_setup(name, dev)
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
+                contextlib.redirect_stdout(io.StringIO()):
+            wrappers = reset_launches()
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            steps = m.run(sol, n_steps).t
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t_start
+            counts = {k: w.launches for k, w in wrappers.items()}
+            files = len(list(Path("output").glob("*.vtk")))
+        want = {k: per_step.get(k, 0) * steps for k in counts}
+        if counts != want or not files:
+            raise AssertionError(f"{name}: launches {counts} and {files} "
+                                 f"files in {steps} steps, expected {want}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        h = sol.copy_to_host()
+        for f, a in zip(h._fields, h):
+            if not np.isfinite(a[:sol.get_d_n()]).all():
+                raise AssertionError(f"{name} field {f} is not finite")
+        # as many steps without output, from the table's start step
+        state = m.start(sol, n_steps)
+        state.t = t0
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        for _ in range(steps):
+            m.step(sol, state)
+        torch.cuda.synchronize()
+        bare_s = time.perf_counter() - t_start
+        flags = {k: float(v.max()) for k, v in sol.aux.items()
+                 if k.startswith("__err_")}
+        if any(flags.values()):
+            raise AssertionError(f"{name}: flags {flags}")
+        if name == "growth_w_wall":
+            k5_rec = k5_example_check(sol)
+        print(f"{name} on the card: setup {setup_s:.2f} s, {sol.get_d_n()} "
+              f"cells, {steps} steps of run with {files} VTK files, "
+              f"launches {counts}, flags 0, state finite; "
+              f"{run_s * 1e3 / steps:.3f} ms a step with its frames, "
+              f"{bare_s * 1e3 / steps:.3f} ms a step without (from step "
+              f"{t0})")
+    m = example("teapot")
+    inits.set_seed(2)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
+            contextlib.redirect_stdout(io.StringIO()):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        points, mesh = m.setup(dev)
+        n_box = points.h_n
+        m.run(points, mesh)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_start
+        files = len(list(Path("output").glob("teapot_*.vtk")))
+    if files != 2 or not 0 < points.h_n < n_box:
+        raise AssertionError(f"teapot: {files} files, {points.h_n} of "
+                             f"{n_box} points kept")
+    print(f"teapot on the card: {n_box} points in the cuboid, {points.h_n} "
+          f"inside the mesh, {run_s:.3f} s for setup, cut and both frames")
+    return launches, k5_rec
+
+
 def snapshot(sol):
     """(host fields, count, host old_v) of a Solution's device state."""
     return (sol.pt_type(*(a.cpu().numpy().copy() for a in sol.d_X)),
             sol.d_n, [a.cpu().numpy().copy() for a in sol.d_old_v])
 
 
-def solution_at(sol, snap, device):
-    """A Solution like ``sol`` (point type, rows, engine) on ``device``
-    holding the state ``snap``."""
+def solution_at(sol, snap, device, engine=None):
+    """A Solution like ``sol`` (point type, rows, engine unless another
+    is given) on ``device`` holding the state ``snap``."""
     import torch
     from yalla_tpu_torch.dtypes import Float3
     from yalla_tpu_torch.solvers import Solution
     h, n, ov = snap
-    out = Solution(sol.pt_type, sol.n_max, engine=sol.engine,
+    out = Solution(sol.pt_type, sol.n_max, engine=engine or sol.engine,
                    device=device, n_pad=sol.n_pad)
     out.h_X = sol.pt_type(*(a.copy() for a in h))
     out.h_n = n
@@ -1746,6 +2421,15 @@ def main():
     example_launches = example_runs(dev, states)
     grid_examples(dev)
 
+    # ---- the last ten examples: K1's intercalation_w_gradient functor,
+    # that example at full width, then the other nine -------------------
+    iwg_k = iwg_kernel_check(dev)
+    iwg_launches = iwg_full_width(dev)
+    iwg_gpu_vs_cpu(dev)
+    more_examples_gpu_vs_cpu(dev)
+    more_launches, k5_example = more_example_runs(dev)
+    gww_capacity(dev)
+
     lattice = (("pour", "yalla_tpu_torch/csrc/pour.cu",
                 "yalla_tpu/ops/lattice_pour.py:244"),
                ("lattice_pair", "yalla_tpu_torch/csrc/lattice_pair.cu",
@@ -1786,15 +2470,30 @@ def main():
                         "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
+    # K1 with intercalation_w_gradient's functor, launched by that example
+    kernels.append({"name": "lattice_pair[intercalation_w_gradient]",
+                    "route": "cuda",
+                    "source": "yalla_tpu_torch/csrc/lattice_pair.cu",
+                    "replaces": "yalla_tpu/ops/lattice_pallas.py:672",
+                    "launches": iwg_launches["lattice_pair"], **iwg_k})
+    # K5 at the growth_w_wall example's state, launched by its run
+    kernels.append({"name": "gabriel_pair[growth_w_wall]", "route": "cuda",
+                    "source": "yalla_tpu_torch/csrc/gabriel_pair.cu",
+                    "replaces": "yalla_tpu/ops/gabriel_pallas.py:271",
+                    "launches": more_launches["gabriel_pair"],
+                    **k5_example})
     # K2 and K1 at the flagship's full width: default_engine's lattice
     kernels += [{"name": f"{name}[flagship]", "route": "cuda", "source": src,
                  "replaces": tpu, "launches": full_launches[name],
                  **full_checks[name]} for name, src, tpu in lattice]
-    # each kernel's launches on the flagship's paths, beside its own path's
+    # each kernel's launches on the flagship's paths and on the examples'
+    # runs of phases 22 and 25, beside its own path's
     for k in kernels:
         name = k["name"].split("[")[0]
         k["flagship_seed_launches"] = seed_launches[name]
         k["flagship_full_width_launches"] = full_launches[name]
+        k["more_examples_launches"] = iwg_launches[name] \
+            + more_launches[name]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

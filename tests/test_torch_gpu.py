@@ -184,15 +184,44 @@ PAIR_CASES = {
     "c16": (3000, 3072, 0.45, 15, 16, 16, 2048),
     "ragged": (4913, 4992, 0.6, 17, 11, 8, 0),
     "ragged_extras": (4913, 4992, 0.6, 17, 11, 4, 2048),
+    # the intercalation_w_gradient functor (16 channels): grid 16, C 8,
+    # half the cells epithelial, with overflow extras
+    "intercalation_w_gradient": (3000, 3072, 0.45, 15, 16, 8, 2048),
 }
+IWG = "intercalation_w_gradient"
+
+
+def _iwg_cells(h, n, seed):
+    """intercalation_w_gradient cells at the positions of ``h`` (the
+    first ``n``), with random polarities, morphogens and types (about one
+    in two epithelial, some exactly on a pole)."""
+    m = importlib.import_module("yalla_tpu_torch.examples." + IWG)
+    rng = np.random.default_rng(seed)
+    n_pad = len(h["x"])
+    out = {f: np.zeros(n_pad, np.float32) for f in m.Cell._fields}
+    for f in "xyz":
+        out[f][:] = h[f]
+    out["theta"][:n] = rng.uniform(0, np.pi, n)
+    out["theta"][:n:17] = 0.0
+    out["phi"][:n] = rng.uniform(-np.pi, np.pi, n)
+    out["w"][:n] = rng.uniform(0, 1, n)
+    out["f"][:n] = rng.uniform(0, 1, n)
+    out["ctype"][:n] = rng.integers(0, 2, n)
+    return m, out
 
 
 def _pair_case(case, device):
-    """(layout, n, grid size, capacity) of one K1 edge shape on ``device``."""
+    """(layout, n, grid size, capacity, force) of one K1 edge shape on
+    ``device``."""
     if PAIR_CASES[case] is None:
-        return _layout(device), N, GS, C
+        return _layout(device), N, GS, C, B.make_force(B.Params())
     n, n_pad, spacing, side, gs, cap, e_cap = PAIR_CASES[case]
     h, ov = _branching_cells(max(n, 1), n_pad, spacing, side, seed=3)
+    Cell, force, pre = B.Cell, B.make_force(B.Params()), B.precompute
+    if case == IWG:
+        m, h = _iwg_cells(h, n, seed=4)
+        Cell, force = m.Cell, m.force
+        pre = m.polarity_precompute
     if case == "boundary":
         # keep the cells whose cube has a coordinate 0 or gs - 1
         idx = np.floor(np.stack([h[f] for f in "xyz"], -1)) + gs // 2
@@ -206,15 +235,13 @@ def _pair_case(case, device):
         # shift the block of cells from [-4.9, 4.9] to cubes 0 .. 10
         for f in "xyz":
             h[f][:n] += 0.5
-    X = B.Cell(*(torch.as_tensor(h[f], device=device)
-                 for f in B.Cell._fields))
+    X = Cell(*(torch.as_tensor(h[f], device=device) for f in Cell._fields))
     ovt = Float3(*(torch.as_tensor(ov[f], device=device) for f in "xyz"))
     lay = lattice_build(X, ovt, n, 1.0, gs, cap, e_cap)
     assert int(lay.n_dropped) == 0 and int(lay.n_oob) == 0
-    assert case != "ragged_extras" or int(lay.n_extras) > 100
-    E = None if lay.E is None else augment(lay.E, n, B.precompute)
-    return (lay._replace(T=augment(lay.T, n, B.precompute), E=E), n, gs,
-            cap)
+    assert case not in ("ragged_extras", IWG) or int(lay.n_extras) > 100
+    E = None if lay.E is None else augment(lay.E, n, pre)
+    return (lay._replace(T=augment(lay.T, n, pre), E=E), n, gs, cap, force)
 
 
 @pytest.mark.parametrize("case", list(PAIR_CASES))
@@ -222,9 +249,11 @@ def test_pair_kernel_matches_plain(cuda, case):
     """K1 against its plain version on the settled 600-cell state (gs 32,
     C 4, with extras) and on edge shapes: an empty lattice, cells only in
     the boundary cubes, C 1 and C 16 (both with overflow extras), and a
-    grid whose bricks are ragged in every axis, without and with extras."""
-    lay, n, gs, cap = _pair_case(case, cuda)
-    force = B.make_force(B.Params())
+    grid whose bricks are ragged in every axis, without and with extras;
+    and with the intercalation_w_gradient functor (its 16 channels, its
+    two neighbour counts exact; dF within the tolerance plus 1e-6 of the
+    slot's sum of term magnitudes, for phi near the poles)."""
+    lay, n, gs, cap, force = _pair_case(case, cuda)
     kw = dict(grid_size=gs, capacity=cap, z_block=2, extras_block_cap=16)
     before = lattice_pairwise_pallas.launches
     got = lattice_pairwise_pallas(force, friction_w_neighbour, lay, n, 1.0,
@@ -233,14 +262,29 @@ def test_pair_kernel_matches_plain(cuda, case):
                                   **kw)
     assert lattice_pairwise_pallas.launches == before + 1
     assert len(got) == len(want)
-    for g, w in zip((got[:4], *got[4:]), (want[:4], *want[4:])):
-        for a, b in zip(g[0], w[0]):
-            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    mags = None
+    if case == IWG:   # each slot's sum of |term|, per dF field
+        def mag(*args):
+            dF, aux = force(*args)
+            return type(dF)(*(a.abs() for a in dF)), aux
+        mags = lattice_pairwise_plain(mag, friction_w_neighbour, lay, n,
+                                      1.0, **kw)
+        mags = (mags[:4], *mags[4:])
+    for k_out, (g, w) in enumerate(zip((got[:4], *got[4:]),
+                                       (want[:4], *want[4:]))):
+        for f, a, b in zip(w[0]._fields, g[0], w[0]):
+            if mags is None:
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+            else:
+                c = getattr(mags[k_out][0], f)
+                tol = 1e-4 * b.abs() + 1e-5 * max(1.0, float(b.abs().max())) \
+                    + 1e-6 * c
+                assert bool(((a - b).abs() <= tol).all()), f
         assert torch.equal(g[1], w[1])                     # sum of friction
         for a, b in zip(g[2], w[2]):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
         for k in w[3]:
-            if k in ("epi_nbs", "__err_extras_block"):
+            if k in ("epi_nbs", "mes_nbs", "__err_extras_block"):
                 assert torch.equal(g[3][k], w[3][k]), k
             else:
                 torch.testing.assert_close(g[3][k], w[3][k], rtol=1e-4,

@@ -49,12 +49,19 @@ LATTICES = [(64, 8), (32, 4), (16, 8), (48, 16), (50, 8), (32, 1), (32, 16),
 H100_SMS = 132
 
 
+# the lattice kernel's functors' channels: branching (x y z u v ctype px
+# py pz and old_v) and intercalation_w_gradient (x y z w f ctype, the
+# seven polarity precompute channels and old_v)
+CHANS = (12, 16)
+
+
+@pytest.mark.parametrize("n_chans", CHANS)
 @pytest.mark.parametrize("grid,capacity", LATTICES)
-def test_lattice_plan_tiles_the_grid(grid, capacity):
-    plan = lattice_plan(grid, capacity)
+def test_lattice_plan_tiles_the_grid(grid, capacity, n_chans):
+    plan = lattice_plan(grid, capacity, n_chans)
     gx, gy, gz = (grid,) * 3 if isinstance(grid, int) else grid
     bz, by, bx = plan.brick
-    assert plan.smem == lattice_smem_bytes(plan.brick, capacity)
+    assert plan.smem == lattice_smem_bytes(plan.brick, capacity, n_chans)
     assert plan.smem <= SMEM_BUDGET < SMEM_MAX
     # two blocks per SM, 1 KB reserved each
     assert 2 * (plan.smem + 1024) <= 233_472
@@ -71,25 +78,58 @@ def test_lattice_plan_tiles_the_grid(grid, capacity):
             and min(b[2], gx) == bx for b in BRICKS]
     for b in BRICKS[:fits.index(True)]:
         clipped = (min(b[0], gz), min(b[1], gy), min(b[2], gx))
-        assert lattice_smem_bytes(clipped, capacity) > SMEM_BUDGET
+        assert lattice_smem_bytes(clipped, capacity, n_chans) > SMEM_BUDGET
+    # the halo's occupancy is staged in the partner lists' room (the
+    # kernel refuses a larger halo)
+    hz, hy, hx = bz + 2, by + 2, bx + 2
+    assert hx * hy * hz * capacity <= 4 * 8 * 256
+
+
+@pytest.mark.parametrize("capacity", [1, 4, 8, 16, 24])
+def test_lattice_smem_bytes_at_12_channels_unchanged(capacity):
+    """At branching's 12 channels the shared memory of every brick is the
+    sum the kernel laid out before it took the channel count from its
+    functor: 52 bytes a halo slot (a 16-byte list entry and 9 channels),
+    the row counts, the extras runs, the work list and the partner
+    lists."""
+    for bz, by, bx in BRICKS:
+        hx, rows = bx + 2, (by + 2) * (bz + 2)
+        H, B = hx * rows, bz * by * bx
+        before = 16 * H * capacity + 36 * H * capacity \
+            + 4 * rows * (hx + 1) + 8 * H + 4 * (B + 1) \
+            + 4 * B * capacity + 4 * 8 * 256
+        assert lattice_smem_bytes((bz, by, bx), capacity, 12) == before
+        # 16 channels: 16 bytes more a halo slot
+        assert lattice_smem_bytes((bz, by, bx), capacity, 16) \
+            == before + 16 * H * capacity
 
 
 def test_lattice_plan_main_path_and_refusals():
-    plan = lattice_plan(64, 8)
+    plan = lattice_plan(64, 8, 12)
     assert plan.brick == (2, 4, 8) and plan.blocks == 4096
     assert plan.smem == 113_316
-    assert lattice_plan(48, 16).brick == (1, 2, 8)
+    assert lattice_plan(48, 16, 12).brick == (1, 2, 8)
     # the wrapper asks once per shape
-    assert lattice_plan(64, 8) is plan
+    assert lattice_plan(64, 8, 12) is plan
+    # intercalation_w_gradient's 16 channels on the lattice its embryo
+    # gets (grid 32, C 8): a smaller brick than branching's there
+    assert lattice_plan(32, 8, 12).brick == (2, 4, 8)
+    iwg = lattice_plan(32, 8, 16)
+    assert iwg.brick == (2, 2, 8) and iwg.smem == 98_372
+    assert iwg.blocks == 1024
+    # at C 16, 16 channels take (1, 1, 8) where 12 take (1, 2, 8)
+    assert lattice_plan(48, 16, 16).brick == (1, 1, 8)
     # one cube and its halo past 227 KB: no brick fits
     with pytest.raises(ValueError, match="shared memory"):
-        lattice_plan(8, 200)
+        lattice_plan(8, 200, 12)
     with pytest.raises(ValueError):
-        lattice_plan(8, 0)
+        lattice_plan(8, 0, 12)
     with pytest.raises(ValueError, match="shared memory"):
-        lattice_plan(8, 256)
+        lattice_plan(8, 256, 12)
     with pytest.raises(ValueError):
-        lattice_plan(2048, 8)            # slot ids past 2^31
+        lattice_plan(2048, 8, 12)            # slot ids past 2^31
+    with pytest.raises(ValueError):
+        lattice_plan(8, 8, 2)                # fewer than x, y, z
 
 
 @pytest.mark.parametrize("n_max", B.tier_caps(500_000) + [900_000])
@@ -103,7 +143,7 @@ def test_lattice_plan_fits_the_flagship_tiers(n_max):
     gs, C = engine.grid_size, engine.capacity
     assert isinstance(gs, int) and engine.extras_cap == 4096
     assert C >= 14 and gs * C % 128 == 0
-    plan = lattice_plan(gs, C)
+    plan = lattice_plan(gs, C, 12)
     assert plan.smem <= SMEM_BUDGET and plan.blocks >= 132
     rows, blocks = pour_plan(gs * gs, gs * C)
     # every row of cubes in one block, no row wider than a block's map

@@ -8,8 +8,9 @@ a missing compiler never breaks the package: each function returns None
 then.  The formatters return a view of their output buffer (bytes-like,
 for a file opened in binary mode): no copy of a frame's tens of megabytes
 is made while the interpreter lock is held, and the library call itself
-releases the lock.  The mesh-exclusion entry point of the JAX package's
-file is not here; it comes with ``mesh.py``.
+releases the lock.  Beside the serializer, the library holds the mesh
+exclusion test of ``mesh.py`` (:func:`test_exclusion`), built with OpenMP
+where the compiler has it.
 """
 from __future__ import annotations
 
@@ -37,9 +38,13 @@ def _build():
     if not out.exists():
         _BUILD_DIR.mkdir(exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        subprocess.run(["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-                        str(_SRC), "-o", str(tmp)],
-                       check=True, capture_output=True)
+        cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", str(_SRC),
+               "-o", str(tmp)]
+        try:  # OpenMP spreads the mesh exclusion test over the points
+            subprocess.run(cmd[:1] + ["-fopenmp"] + cmd[1:], check=True,
+                           capture_output=True)
+        except subprocess.CalledProcessError:
+            subprocess.run(cmd, check=True, capture_output=True)
         os.replace(tmp, out)
     return out
 
@@ -73,6 +78,10 @@ def get_lib():
         lib.yt_parse_doubles.restype = c_long
         lib.yt_parse_doubles.argtypes = [
             ctypes.c_char_p, c_long, ctypes.POINTER(ctypes.c_double), c_long]
+        dp = ctypes.POINTER(ctypes.c_double)
+        lib.yt_test_exclusion.restype = c_long
+        lib.yt_test_exclusion.argtypes = [
+            dp, c_long, dp, c_long, dp, ctypes.POINTER(ctypes.c_uint8)]
         _lib = lib
         return _lib
 
@@ -150,3 +159,24 @@ def parse_doubles(text, max_count):
         raw, len(raw), out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
         max_count)
     return out[:k]
+
+
+def test_exclusion(points, facet_vertices, ray_dir):
+    """Ray-parity point-in-closed-mesh test (True = outside) on the native
+    library, or None if unavailable.  ``points`` [n, 3], ``facet_vertices``
+    [f, 3, 3], ``ray_dir`` [3] (the reference's fixed direction,
+    mesh.cuh:390), all f64."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    P = np.ascontiguousarray(points, np.float64)
+    V = np.ascontiguousarray(facet_vertices, np.float64)
+    d = np.ascontiguousarray(ray_dir, np.float64)
+    out = np.empty(len(P), np.uint8)
+
+    def dptr(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+    n = lib.yt_test_exclusion(
+        dptr(P), len(P), dptr(V), len(V), dptr(d),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return out.astype(bool) if n == len(P) else None

@@ -118,3 +118,82 @@ long yt_parse_doubles(const char* text, long len, double* out, long cap)
 }
 
 }  // extern "C"
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// Point-in-closed-mesh test for mesh.py (a geometry service beside the
+// serializer), the port's copy of the JAX package's yt_test_exclusion.
+//
+// The reference's Mesh::test_exclusion ray-triangle parity walk
+// (ref include/mesh.cuh:379-419): for each point, count the intersections
+// of the fixed ray direction with the facets; an even count means outside.
+// O(1) memory, parallel over points where the build has OpenMP.
+long yt_test_exclusion(const double* pts, long n_pts,
+                       const double* verts,  // [n_f, 3, 3]
+                       long n_f, const double* ray, unsigned char* out)
+{
+    const double dx = ray[0], dy = ray[1], dz = ray[2];
+    // Per-facet invariants (normal, barycentric Gram terms, ray
+    // denominator), hoisted out of the point loop.  Facets parallel to the
+    // ray or degenerate (den == 0 / Gram determinant == 0) never register a
+    // hit and are left out.
+    struct Facet {
+        double v0x, v0y, v0z;           // vertex 0
+        double ux, uy, uz, vx, vy, vz;  // edge vectors
+        double nx, ny, nz;              // normal (u x v)
+        double inv_den;                 // 1 / (n . ray)
+        double n_v0;                    // n . v0
+        double uu_d, vv_d, uv_d;        // Gram terms / Gram determinant
+    };
+    Facet* F = new Facet[n_f];
+    long n_live = 0;
+    for (long f = 0; f < n_f; ++f) {
+        const double* V = verts + f * 9;
+        Facet c;
+        c.v0x = V[0]; c.v0y = V[1]; c.v0z = V[2];
+        c.ux = V[3] - V[0]; c.uy = V[4] - V[1]; c.uz = V[5] - V[2];
+        c.vx = V[6] - V[0]; c.vy = V[7] - V[1]; c.vz = V[8] - V[2];
+        c.nx = c.uy * c.vz - c.uz * c.vy;
+        c.ny = c.uz * c.vx - c.ux * c.vz;
+        c.nz = c.ux * c.vy - c.uy * c.vx;
+        const double den = c.nx * dx + c.ny * dy + c.nz * dz;
+        const double uu = c.ux * c.ux + c.uy * c.uy + c.uz * c.uz;
+        const double vv = c.vx * c.vx + c.vy * c.vy + c.vz * c.vz;
+        const double uv = c.ux * c.vx + c.uy * c.vy + c.uz * c.vz;
+        const double denom = uv * uv - uu * vv;
+        if (den == 0.0 || denom == 0.0) continue;
+        c.inv_den = 1.0 / den;
+        c.n_v0 = c.nx * V[0] + c.ny * V[1] + c.nz * V[2];
+        const double inv_denom = 1.0 / denom;
+        c.uu_d = uu * inv_denom;
+        c.vv_d = vv * inv_denom;
+        c.uv_d = uv * inv_denom;
+        F[n_live++] = c;
+    }
+#pragma omp parallel for schedule(static)
+    for (long i = 0; i < n_pts; ++i) {
+        const double px = pts[i * 3], py = pts[i * 3 + 1],
+                     pz = pts[i * 3 + 2];
+        long hits = 0;
+        for (long f = 0; f < n_live; ++f) {
+            const Facet& c = F[f];
+            const double r = (c.n_v0 - (c.nx * px + c.ny * py
+                                        + c.nz * pz)) * c.inv_den;
+            if (r < 0.0) continue;
+            const double wx = px + dx * r - c.v0x;
+            const double wy = py + dy * r - c.v0y;
+            const double wz = pz + dz * r - c.v0z;
+            const double wu = wx * c.ux + wy * c.uy + wz * c.uz;
+            const double wv = wx * c.vx + wy * c.vy + wz * c.vz;
+            const double s = c.uv_d * wv - c.vv_d * wu;
+            const double t = c.uv_d * wu - c.uu_d * wv;
+            if (s >= 0.0 && s <= 1.0 && t >= 0.0 && s + t <= 1.0) ++hits;
+        }
+        out[i] = (hits % 2 == 0) ? 1 : 0;  // even = outside
+    }
+    delete[] F;
+    return n_pts;
+}
+
+}  // extern "C"

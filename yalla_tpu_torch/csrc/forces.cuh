@@ -215,6 +215,87 @@ struct BranchingForce {
   }
 };
 
+struct IwgCell {
+  float x, y, z, w, f, ctype, px, py, pz, pcf, psf, pst, psg;
+};
+
+// yalla_tpu_torch/examples/intercalation_w_gradient.py::force with
+// friction_w_neighbour as a device functor (ref
+// examples/intercalation_w_gradient.cu:31-68), on the point fields and the
+// seven channels of polarity.polarity_precompute (the unit polarity p, cos
+// and sin of phi, the signed sin theta and its guarded inverse).  Within
+// r_max: a type-dependent ReLU band, w and f diffusing into the
+// mesenchyme, polarity.bending_force_fast scaled by 0.15 between
+// epithelial cells, and the counts of epithelial and mesenchymal
+// neighbours.  The gates (dist <= r_max, the types of i, of j and of the
+// pair) read the pair distance and differences of 0/1 types, all exact,
+// so both counts come out as the plain version's.  On the diagonal, w and
+// f degrade in the mesenchyme.
+// Sums: fx fy fz dw df dtheta dphi epi_nbs mes_nbs sum_f sum_vx sum_vy
+// sum_vz.
+struct IntercalationWGradient {
+  using Cell = IwgCell;
+  static constexpr int kFields = 13;
+  static constexpr int kSums = 13;
+  static constexpr int kSumF = 9;
+  float r_max;
+
+  __device__ void pair(const Cell& a, const Cell& b, float dist, float ovx,
+                       float ovy, float ovz, float* acc) const {
+    friction_w_neighbour(dist, ovx, ovy, ovz, acc, kSumF);
+    if (!(dist <= r_max)) return;
+    const float rx = a.x - b.x, ry = a.y - b.y, rz = a.z - b.z;
+    const float rc = a.ctype - b.ctype;
+    const float ctype_j = a.ctype - rc;
+    const bool mes_i = a.ctype == 0.0f;
+    // the band: same type (mesenchyme or epithelium) or mixed pair
+    float F;
+    if (rc == 0.0f)
+      F = mes_i ? fmaxf(0.8f - dist, 0.0f) * 2.0f - fmaxf(dist - 0.8f, 0.0f)
+                : fmaxf(0.8f - dist, 0.0f) * 2.0f -
+                      fmaxf(dist - 0.8f, 0.0f) * 2.0f;
+    else
+      F = fmaxf(0.9f - dist, 0.0f) * 2.0f - fmaxf(dist - 0.9f, 0.0f) * 2.0f;
+    const float w = F / (dist > 0.0f ? dist : 1.0f);
+    float fx = rx * w, fy = ry * w, fz = rz * w;
+    if (mes_i) {
+      acc[3] += -(a.w - b.w) * 0.1f;
+      acc[4] += -(a.f - b.f) * 0.1f;
+    }
+    if (a.ctype * ctype_j == 1.0f) {
+      // bending_force_fast: p_j eliminated as p_i - r.p, the per-point
+      // trig of p_i from the precompute channels
+      const float inv = 1.0f / dist;
+      const float rpx = a.px - b.px, rpy = a.py - b.py, rpz = a.pz - b.pz;
+      const float prodi = (a.px * rx + a.py * ry + a.pz * rz) * inv;
+      const float prodj = prodi - (rpx * rx + rpy * ry + rpz * rz) * inv;
+      const float d_theta = (a.pz * (a.pcf * rx + a.psf * ry) - a.pst * rz)
+                            * inv;
+      const float d_phi = (a.pcf * ry - a.psf * rx) * inv * a.psg;
+      const float ai = prodi * inv, aj = prodj * inv;
+      const float s1 = ai + aj, s2 = ai * ai + aj * aj;
+      fx += (s2 * rx - s1 * a.px + aj * rpx) * 0.15f;
+      fy += (s2 * ry - s1 * a.py + aj * rpy) * 0.15f;
+      fz += (s2 * rz - s1 * a.pz + aj * rpz) * 0.15f;
+      acc[5] += -prodi * d_theta * 0.15f;
+      acc[6] += -prodi * d_phi * 0.15f;
+    }
+    acc[0] += fx;
+    acc[1] += fy;
+    acc[2] += fz;
+    acc[7] += ctype_j == 1.0f ? 1.0f : 0.0f;
+    acc[8] += ctype_j == 0.0f ? 1.0f : 0.0f;
+  }
+
+  // i == j: degradation of w and f in the mesenchyme; every other term
+  // and the friction vanish on the diagonal
+  __device__ void self_pair(const Cell& a, float* acc) const {
+    if (a.ctype != 0.0f) return;
+    acc[3] += -0.01f * a.w;
+    acc[4] += -0.01f * a.f;
+  }
+};
+
 struct SortingCell {
   float x, y, z, ctype;
 };

@@ -3,19 +3,26 @@
 // Replaces yalla_tpu/ops/lattice_pallas.py::lattice_pairwise_pallas (with its
 // overflow-extras sidecar, _extras_tables and the extras-extras merge).
 // What it computes, not its TPU layout: for every occupied slot i, the sums
-// over partners j in the 27-cube stencil with dist < cube_size of the force
-// (dF x y z u v), the aux channels (epi_nbs, pg_x/y/z), the friction and
+// over partners j in the 27-cube stencil with dist < cube_size of a force
+// functor's sums (its dF fields and aux channels), the friction and
 // friction * old_v[j].  The self-pair uses the full force (the Meinhardt
-// reaction); every other pair the off-diagonal force.  Each overflow extra
-// gets the same sums over lattice partners, extras partners and its own
-// diagonal, and every lattice slot also sees the extras of its 27 cubes.
-// Empty slots and dead extras get zero sums.
+// reaction of branching, the degradation of intercalation_w_gradient);
+// every other pair the off-diagonal force.  Each overflow extra gets the
+// same sums over lattice partners, extras partners and its own diagonal,
+// and every lattice slot also sees the extras of its 27 cubes.  Empty
+// slots and dead extras get zero sums.
+//
+// The kernel is generic in its functor (forces.cuh): the channel count is
+// the functor's kFields + 3 (12 for branching, 16 for
+// intercalation_w_gradient), the sum count its kSums (13 for both), and
+// the shared-memory layout, the staging and the sums follow them.  Each
+// functor has its own C entry point (YALLA_LATTICE_ENTRY below).
 //
 // The force is a device functor shared with the tile kernel (forces.cuh).
 //
-// Bound: memory.  A pass writes 13 sums for every slot (109 MB at gs 64^3,
-// C 8) and reads the occupied slots' channels and the occupancy (about
-// 26 MB): about 0.04 ms on an H100.  Its arithmetic is below that line but
+// Bound (branching): memory.  A pass writes 13 sums for every slot (109 MB
+// at gs 64^3, C 8) and reads the occupied slots' channels and the
+// occupancy (about 26 MB): about 0.04 ms on an H100.  Its arithmetic is below that line but
 // not small: in the settled 500k tissue a cell has about 126 live
 // candidates in its 27 cubes and about 19 partners in reach
 // (chip_smoke.py prints both).
@@ -30,16 +37,18 @@
 //
 // Design for Hopper:
 // * A block owns a brick of bz x by x bx cubes (ops/lattice_pallas.py::
-//   lattice_plan picks it: 2 x 4 x 8 at C <= 8, smaller above, clipped to
-//   the grid; a ragged brick at the grid's edge is masked).
+//   lattice_plan picks it from C and the channel count: 2 x 4 x 8 for
+//   branching at C <= 8, smaller above, clipped to the grid; a ragged
+//   brick at the grid's edge is masked).
 // * It stages its halo, (bz+2) x (by+2) x (bx+2) cubes, in shared memory:
 //   first the occupancy, every load independent; then, one warp per
 //   x-row of (bx+2) * C contiguous slots, cp.async copies of the live
 //   slots' channels, waited for once.  Each x-row's live slots form a
 //   list in slot order (a ballot and a prefix count per 32 slots) of
-//   float4 entries (x, y, z, slot id); the other 9 channels stay in slot
-//   order.  The 3 cubes of one x-row around a cell are then one
-//   contiguous run of that list.  113 KB at C 8: two blocks per SM.
+//   float4 entries (x, y, z, slot id); the other channels (9 for
+//   branching, 13 for intercalation_w_gradient) stay in slot order.  The
+//   3 cubes of one x-row around a cell are then one contiguous run of
+//   that list.  113 KB at C 8 for branching: two blocks per SM.
 // * The halo's extras table ([start, end) of each cube's extras) is read
 //   once per block into shared memory; a block whose halo holds no extra
 //   skips them.
@@ -82,31 +91,40 @@ namespace {
 using yalla::BranchingForce;
 using yalla::BranchingParams;
 using yalla::cp_async4;
+using yalla::IntercalationWGradient;
 using yalla::pair_d2;
 using yalla::pair_dist;
 using yalla::reach2_of;
-using Cell = BranchingForce::Cell;
 
-constexpr int kChans = 12;  // x y z u v ctype px py pz ov_x ov_y ov_z
-constexpr int kOut = 13;    // fx fy fz du dv epi_nbs pg_x pg_y pg_z
-                            // sum_f sum_vx sum_vy sum_vz
 constexpr int kThreads = 256;      // lattice kernel: threads per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 8;          // lanes per live cell
 constexpr int kList = 8;           // in-reach partners a lane lists
 constexpr int kExtrasThreads = 128;
 constexpr int kMaxDevices = 64;
-static_assert(BranchingForce::kSums == kOut, "one sum per output row");
 static_assert(32 % kGroup == 0, "a cell's lanes share a warp");
 
+// The channels of a functor: its kFields point fields in the order of its
+// Cell (x, y, z first), then old_v x y z.  Branching reads 12 (x y z u v
+// ctype px py pz and old_v), intercalation_w_gradient 16 (x y z w f
+// ctype px py pz pcf psf pst psg and old_v).
+template <class Force>
 struct Chans {
+  static constexpr int kChans = Force::kFields + 3;
   const float* p[kChans];
 };
 
-__device__ __forceinline__ Cell load_cell(const Chans& c, int s) {
-  return Cell{__ldg(c.p[0] + s), __ldg(c.p[1] + s), __ldg(c.p[2] + s),
-              __ldg(c.p[3] + s), __ldg(c.p[4] + s), __ldg(c.p[5] + s),
-              __ldg(c.p[6] + s), __ldg(c.p[7] + s), __ldg(c.p[8] + s)};
+// A functor's Cell is kFields floats in channel order
+template <class Force>
+__device__ __forceinline__ typename Force::Cell load_cell(
+    const Chans<Force>& c, int s) {
+  static_assert(sizeof(typename Force::Cell) == Force::kFields * sizeof(float),
+                "a Cell is its kFields floats");
+  typename Force::Cell a;
+  float* v = reinterpret_cast<float*>(&a);
+#pragma unroll
+  for (int k = 0; k < Force::kFields; ++k) v[k] = __ldg(c.p[k] + s);
+  return a;
 }
 
 struct Grid {
@@ -120,22 +138,24 @@ struct Brick {
   int bz, by, bx;  // cubes per block
 };
 
+template <class Force>
 struct Extras {
-  Chans ch;
+  Chans<Force> ch;
   const int* cube;   // [E_cap] cube id per extra, n_cubes = empty
   const int* order;  // [E_cap] extras sorted by cube
   const int* start;  // [n_cubes + 1] run of each cube in ``order``
   int cap;
 };
 
-// Shared-memory bytes of a block (ops/lattice_pallas.py::lattice_plan
-// computes the same sum), with H the halo's cubes, R = hy * hz its x-rows
+// Shared-memory bytes of a block for a functor of ``n_chans`` channels
+// (ops/lattice_pallas.py::lattice_plan computes the same sum), with H the
+// halo's cubes, R = hy * hz its x-rows
 // of hx cubes, B the brick's cubes and HC = H * C the halo's slots:
 //   rl     float4 [HC]              each x-row's live slots in slot order,
 //                                   row r from r * hx * C: x y z and the
 //                                   slot's id e, slot (hc, c) being
 //                                   e = hc * C + c
-//   ch     float  [kChans - 3][HC]  the live slots' other channels, at e
+//   ch     float  [n_chans - 3][HC] the live slots' other channels, at e
 //   cs     int    [R][hx + 1]       live slots of each row before each of
 //                                   its cubes, and the row's total
 //   es/ee  int    [2 * H]           extras run of each halo cube
@@ -148,58 +168,73 @@ struct Extras {
 //   glist  ushort [kThreads][kList] each cell's partners, its lanes' lists
 //                                   joined
 // While the halo is staged, plist and glist hold its occupancy, a byte per
-// slot (HC <= smem / 52 < 4 * kList * kThreads bytes).
-long long smem_bytes(const Brick& b, int C) {
+// slot (launch refuses a halo of more than 4 * kList * kThreads slots).
+long long smem_bytes(const Brick& b, int C, int n_chans) {
   const long long hx = b.bx + 2, R = (long long)(b.by + 2) * (b.bz + 2);
   const long long H = hx * R;
   const long long B = (long long)b.bz * b.by * b.bx;
   const long long HC = H * C;
-  return 16 * HC + 4LL * (kChans - 3) * HC + 4 * R * (hx + 1) + 8 * H +
+  return 16 * HC + 4LL * (n_chans - 3) * HC + 4 * R * (hx + 1) + 8 * H +
          4 * (B + 1) + 4 * B * C + 4LL * kList * kThreads;
 }
 
 // Sums of partner ``j`` (an extra, from device memory) into ``acc`` for
 // point ``a``
 template <class Force>
-__device__ __forceinline__ void visit(const Force& f, const Cell& a,
-                                      const Chans& ch, int j, float cutoff,
-                                      float* acc) {
+__device__ __forceinline__ void visit(const Force& f,
+                                      const typename Force::Cell& a,
+                                      const Chans<Force>& ch, int j,
+                                      float cutoff, float* acc) {
+  constexpr int kF = Force::kFields;
   const float dist = pair_dist(a.x, a.y, a.z, __ldg(ch.p[0] + j),
                                __ldg(ch.p[1] + j), __ldg(ch.p[2] + j));
   if (!(dist < cutoff)) return;
-  f.pair(a, load_cell(ch, j), dist, __ldg(ch.p[9] + j), __ldg(ch.p[10] + j),
-         __ldg(ch.p[11] + j), acc);
+  f.pair(a, load_cell(ch, j), dist, __ldg(ch.p[kF] + j),
+         __ldg(ch.p[kF + 1] + j), __ldg(ch.p[kF + 2] + j), acc);
 }
 
 // The staged cell at place ``i`` of rl; its slot id in ``e``
-__device__ __forceinline__ Cell staged_cell(const float4* rl, const float* ch,
-                                            int HC, int i, int& e) {
+template <class Force>
+__device__ __forceinline__ typename Force::Cell staged_cell(
+    const float4* rl, const float* ch, int HC, int i, int& e) {
   const float4 p = rl[i];
   e = __float_as_int(p.w);
-  return Cell{p.x,            p.y,            p.z,
-              ch[e],          ch[HC + e],     ch[2 * HC + e],
-              ch[3 * HC + e], ch[4 * HC + e], ch[5 * HC + e]};
+  typename Force::Cell a;
+  float* v = reinterpret_cast<float*>(&a);
+  v[0] = p.x;
+  v[1] = p.y;
+  v[2] = p.z;
+#pragma unroll
+  for (int k = 3; k < Force::kFields; ++k) v[k] = ch[(k - 3) * HC + e];
+  return a;
 }
 
 // The force on ``a`` (at place ``i_me`` of rl) from the staged partner at
 // place ``i`` in reach, unless that is ``a`` itself
 template <class Force>
-__device__ __forceinline__ void staged_pair(const Force& f, const Cell& a,
+__device__ __forceinline__ void staged_pair(const Force& f,
+                                            const typename Force::Cell& a,
                                             const float4* rl,
                                             const float* ch, int HC,
                                             int i_me, int i, float* acc) {
+  constexpr int kOv = Force::kFields - 3;  // old_v's first row in ch
   if (i == i_me) return;
   int e;
-  const Cell b = staged_cell(rl, ch, HC, i, e);
+  const typename Force::Cell b = staged_cell<Force>(rl, ch, HC, i, e);
   const float dist = pair_dist(a.x, a.y, a.z, b.x, b.y, b.z);
-  f.pair(a, b, dist, ch[6 * HC + e], ch[7 * HC + e], ch[8 * HC + e], acc);
+  f.pair(a, b, dist, ch[kOv * HC + e], ch[(kOv + 1) * HC + e],
+         ch[(kOv + 2) * HC + e], acc);
 }
 
 template <class Force>
 __global__ void __launch_bounds__(kThreads, 2)
 lattice_pair_kernel(const Force f, const Grid g, const Brick br,
-                    const Chans L, const unsigned char* __restrict__ occ,
-                    const Extras E, float* __restrict__ out) {
+                    const Chans<Force> L,
+                    const unsigned char* __restrict__ occ,
+                    const Extras<Force> E, float* __restrict__ out) {
+  using Cell = typename Force::Cell;
+  constexpr int kChans = Chans<Force>::kChans;
+  constexpr int kOut = Force::kSums;
   extern __shared__ float4 smem[];
   const int C = g.C;
   const int hx = br.bx + 2, hy = br.by + 2, hz = br.bz + 2;
@@ -335,7 +370,7 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
       xh = item >> 16 & 31;
       yh = item >> 21 & 31;
       zh = item >> 26;
-      a = staged_cell(rl, ch, HC, i_me, e_me);
+      a = staged_cell<Force>(rl, ch, HC, i_me, e_me);
       if (u == 0) f.self_pair(a, acc);
       const int r_me = zh * hy + yh, hc = r_me * hx + xh;
       for (int k = 0; k < 9; ++k) {
@@ -408,9 +443,12 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
 
 template <class Force>
 __global__ void __launch_bounds__(kExtrasThreads)
-extras_pair_kernel(const Force f, const Grid g, const Chans L,
-                   const unsigned char* __restrict__ occ, const Extras E,
-                   float* __restrict__ out) {
+extras_pair_kernel(const Force f, const Grid g, const Chans<Force> L,
+                   const unsigned char* __restrict__ occ,
+                   const Extras<Force> E, float* __restrict__ out) {
+  using Cell = typename Force::Cell;
+  constexpr int kOut = Force::kSums;
+  static_assert(kOut <= 32, "a lane zeroes each sum of a dead extra");
   const int lane = threadIdx.x & 31;
   const int e = (blockIdx.x * kExtrasThreads + threadIdx.x) >> 5;
   if (e >= E.cap) return;
@@ -471,15 +509,19 @@ extras_pair_kernel(const Force f, const Grid g, const Chans L,
 
 template <class Force>
 int launch(const Force& f, const Grid& g, const Brick& br, long long smem,
-           const Chans& L, const unsigned char* occ, const Extras& E,
-           float* out, float* eout, cudaStream_t stream) {
+           const Chans<Force>& L, const unsigned char* occ,
+           const Extras<Force>& E, float* out, float* eout,
+           cudaStream_t stream) {
   const long long n_slots = (long long)g.gx * g.gy * g.gz * g.C;
-  // places in rl are 16-bit, a cube's halo coordinates 5 bits
+  const long long HC = (long long)(br.bx + 2) * (br.by + 2) * (br.bz + 2) *
+                       g.C;
+  // places in rl are 16-bit, a cube's halo coordinates 5 bits, and the
+  // halo's occupancy is staged in the partner lists' room
   if (g.gx < 1 || g.gy < 1 || g.gz < 1 || g.C < 1 || br.bx < 1 ||
-      br.by < 1 || br.bz < 1 || n_slots >= (1LL << 31) ||
-      (long long)(br.bx + 2) * (br.by + 2) * (br.bz + 2) * g.C > 65535 ||
-      br.bx > 30 || br.by > 30 || br.bz > 30 ||
-      smem < smem_bytes(br, g.C) || smem > 232448)
+      br.by < 1 || br.bz < 1 || n_slots >= (1LL << 31) || HC > 65535 ||
+      HC > 4 * kList * kThreads || br.bx > 30 || br.by > 30 ||
+      br.bz > 30 || smem < smem_bytes(br, g.C, Chans<Force>::kChans) ||
+      smem > 232448)
     return (int)cudaErrorInvalidValue;
   // above the default 48 KB a kernel takes dynamic shared memory only by
   // opting in; once per device, for the largest size asked so far
@@ -505,31 +547,58 @@ int launch(const Force& f, const Grid& g, const Brick& br, long long smem,
   return (int)cudaGetLastError();
 }
 
-Chans chans_of(const void* const* ptrs) {
-  Chans c{};
+template <class Force>
+Chans<Force> chans_of(const void* const* ptrs) {
+  Chans<Force> c{};
   if (ptrs)
-    for (int k = 0; k < kChans; ++k) c.p[k] = (const float*)ptrs[k];
+    for (int k = 0; k < Chans<Force>::kChans; ++k)
+      c.p[k] = (const float*)ptrs[k];
   return c;
+}
+
+// One entry point's work: the grid, brick and extras of its arguments
+template <class Force>
+int launch_entry(const Force& f, const void* const* chans,
+                 const unsigned char* occ, const void* const* echans,
+                 const int* ecube, const int* eorder, const int* estart,
+                 int E_cap, int gx, int gy, int gz, int C, float cube_size,
+                 int bz, int by, int bx, long long smem, float* out,
+                 float* eout, cudaStream_t stream) {
+  const Grid g{gx, gy, gz, C, cube_size, reach2_of(cube_size)};
+  const Brick br{bz, by, bx};
+  const Extras<Force> E{chans_of<Force>(echans), ecube, eorder, estart,
+                        E_cap};
+  return launch(f, g, br, smem, chans_of<Force>(chans), occ, E, out, eout,
+                stream);
 }
 
 }  // namespace
 
-// chans / echans: host arrays of kChans device pointers (lattice slots and
-// extras); bz, by, bx, smem: the brick and shared-memory bytes of
-// ops/lattice_pallas.py::lattice_plan; params: host array of the 10
-// BranchingParams values.
-extern "C" int yalla_lattice_pair_branching(
-    const void* const* chans, const unsigned char* occ,
-    const void* const* echans, const int* ecube, const int* eorder,
-    const int* estart, int E_cap, int gx, int gy, int gz, int C,
-    float cube_size, int bz, int by, int bx, long long smem,
-    const float* params, float* out, float* eout, cudaStream_t stream) {
-  BranchingForce f;
-  f.p = BranchingParams{params[0], params[1], params[2], params[3],
-                        params[4], params[5], params[6], params[7],
-                        params[8], params[9]};
-  const Grid g{gx, gy, gz, C, cube_size, reach2_of(cube_size)};
-  const Brick br{bz, by, bx};
-  const Extras E{chans_of(echans), ecube, eorder, estart, E_cap};
-  return launch(f, g, br, smem, chans_of(chans), occ, E, out, eout, stream);
-}
+// One entry point per functor.  chans / echans: host arrays of the
+// functor's kFields + 3 device pointers (lattice slots and extras); bz,
+// by, bx, smem: the brick and shared-memory bytes of
+// ops/lattice_pallas.py::lattice_plan; params: host array of the
+// functor's parameter values (ops/functors.py, ``params``).
+#define YALLA_LATTICE_ENTRY(NAME, FORCE, SET_PARAMS)                        \
+  extern "C" int NAME(                                                     \
+      const void* const* chans, const unsigned char* occ,                  \
+      const void* const* echans, const int* ecube, const int* eorder,      \
+      const int* estart, int E_cap, int gx, int gy, int gz, int C,         \
+      float cube_size, int bz, int by, int bx, long long smem,             \
+      const float* params, float* out, float* eout, cudaStream_t stream) { \
+    FORCE f;                                                               \
+    SET_PARAMS;                                                            \
+    return launch_entry(f, chans, occ, echans, ecube, eorder, estart,      \
+                        E_cap, gx, gy, gz, C, cube_size, bz, by, bx, smem, \
+                        out, eout, stream);                                \
+  }
+
+// the 10 BranchingParams values
+YALLA_LATTICE_ENTRY(yalla_lattice_pair_branching, BranchingForce,
+                    f.p = (BranchingParams{params[0], params[1], params[2],
+                                           params[3], params[4], params[5],
+                                           params[6], params[7], params[8],
+                                           params[9]}))
+// r_max
+YALLA_LATTICE_ENTRY(yalla_lattice_pair_intercalation_w_gradient,
+                    IntercalationWGradient, f.r_max = params[0])

@@ -21,11 +21,14 @@ one JSON line:
   half-space tissue (gs 48, C 16, NC 32) after its lattice build
   (``busy_ms``: every kernel and fill it launches then, ``kernels`` of
   them) and of the pair kernel itself (``gabriel_pair_kernel``);
-* ``step_500k``, ``step_5k_tile``, ``step_5k_central`` and ``step_100k``:
-  per step of the 500k slice, of the 5k slice on
-  ``TileEngine(pallas=True)`` and ``TileEngine(mxu=True)``, and of the
-  100k growth_w_wall slice (``Links.update`` + ``take_step``), the device
-  busy ms (the sum of every kernel's and copy's device time in a profiled
+* ``step_500k``, ``step_5k_tile``, ``step_5k_central``, ``step_100k``
+  and ``step_iwg``: per step of the 500k slice, of the 5k slice on
+  ``TileEngine(pallas=True)`` and ``TileEngine(mxu=True)``, of the 100k
+  growth_w_wall slice (``Links.update`` + ``take_step``) and of the
+  intercalation_w_gradient example at full width (its ``step``; the
+  link forces' ``index_add`` kernels named beside K1; only in trees
+  that have the example), the device busy
+  ms (the sum of every kernel's and copy's device time in a profiled
   window, over its steps), the device kernels launched, and the wall ms
   of each of ``WALL_WINDOWS`` unprofiled windows.
 
@@ -199,6 +202,16 @@ def growth_w_wall_step(dev, n_cells, engine, links_seed):
     return step
 
 
+def iwg_step(dev):
+    """A function that takes one step of the intercalation_w_gradient
+    example (rewiring, the Heun step with the link forces, divisions) from
+    its initial state (``sphere_ic.vtk``, 11,557 cells in 151,552 rows)."""
+    from yalla_tpu_torch.examples import intercalation_w_gradient as m
+    sol = m.setup(dev)
+    state = m.start(sol)
+    return lambda: m.step(sol, state)
+
+
 def _wall_ms(fn, calls):
     """Wall ms per call of ``fn`` in each of ``WALL_WINDOWS`` windows of
     ``calls`` calls, after one warm-up call."""
@@ -321,6 +334,16 @@ def _one(root):
             k5_kernels, fresh=True),
         "wall_ms": _wall_ms(growth_w_wall_step(dev, 100_000, engine, 15),
                             3)}
+
+    # the intercalation_w_gradient example at full width, each window
+    # from its initial state (trees that have the example)
+    if (root / "yalla_tpu_torch" / "examples"
+            / "intercalation_w_gradient.py").exists():
+        out["step_iwg"] = {
+            **_device_windows(lambda: iwg_step(dev), 3,
+                              ("lattice_pair_kernel", "indexFuncLargeIndex"),
+                              fresh=True),
+            "wall_ms": _wall_ms(iwg_step(dev), 5)}
     return out
 
 
@@ -392,7 +415,8 @@ def _plans(root):
 
 def _metrics(run):
     """{metric: list of values} of one run: the windows of each."""
-    steps = ("500k", "5k_tile", "5k_central", "100k")
+    steps = [t for t in ("500k", "5k_tile", "5k_central", "100k", "iwg")
+             if f"step_{t}" in run]
     return {**{f"k{i}_ms": run[f"k{i}"]["windows_ms"] for i in range(1, 6)},
             **{f"busy_{t}_ms": run[f"step_{t}"]["windows_ms"] for t in steps},
             **{f"wall_{t}_ms": run[f"step_{t}"]["wall_ms"] for t in steps}}
@@ -400,9 +424,10 @@ def _metrics(run):
 
 def verdicts(first, second):
     """{metric: "better" | "worse" | "unresolved"} of the runs of the
-    second tree against those of the first, taken in pairs in order."""
+    second tree against those of the first, taken in pairs in order, for
+    the metrics both trees have."""
     out = {}
-    for m in _metrics(first[0]):
+    for m in _metrics(first[0]).keys() & _metrics(second[0]).keys():
         signs = set()
         for a, b in zip(first, second):
             va, vb = _metrics(a)[m], _metrics(b)[m]

@@ -10,8 +10,14 @@ forces agree with the CPU to f32 rounding, not bit for bit.
 
 Randomness: ``Links`` holds a ``torch.Generator`` on its device, seeded
 from ``seed``.  ``Links.update`` draws the rewiring randoms from it and
-hands them to the rule as a ``Draws``, so a caller (a test holding the port
-against the JAX package's ``jax.random`` draws) can pass its own instead.
+hands them to the rule, so a caller (a test holding the port against the
+JAX package's ``jax.random`` draws) can pass its own instead.  A rule says
+what it draws by a factory, ``rule.draws = factory``, with ``factory(
+generator, m, device)`` the randoms of ``m`` link rows: ``cube_draws``
+(the default, a ``Draws``: the grid-sampled rules of growth_w_wall,
+model_features_sequential_addition and intercalation_w_gradient) or
+``uniforms(count)`` (``count`` uniforms a row: sorting_prot 3,
+intercalation 1).
 """
 from __future__ import annotations
 
@@ -24,9 +30,9 @@ from .dtypes import device_of, pt_zeros_like
 from .ops.grid_xla import _row_offsets, build_grid
 from .solvers import GenericForce
 
-__all__ = ["Links", "Draws", "random_cube_neighbours", "linear_force",
-           "link_forces", "wall_forces", "link_wall_forces",
-           "xy_wall_relu_force"]
+__all__ = ["Links", "Draws", "cube_draws", "uniforms",
+           "random_cube_neighbours", "linear_force", "link_forces",
+           "wall_forces", "link_wall_forces", "xy_wall_relu_force"]
 
 
 def _pad(n):
@@ -34,11 +40,30 @@ def _pad(n):
 
 
 class Draws(NamedTuple):
-    """The randoms of one ``Links.update``, one per link row: a neighbour
-    cube, a uniform that picks a cell in it, and the rule's own uniform."""
+    """The randoms of one ``Links.update`` of a grid-sampled rule, one per
+    link row: a neighbour cube, a uniform that picks a cell in it, and the
+    rule's own uniform."""
     pick_cube: torch.Tensor   # int64[n_pad] in [0, 27)
     u: torch.Tensor           # f32[n_pad] in [0, 1)
     noise: torch.Tensor       # f32[n_pad] in [0, 1)
+
+
+def cube_draws(generator, m, device):
+    """A :class:`Draws` of ``m`` rows from ``generator``: the cube, then
+    the pick, then the noise."""
+    return Draws(torch.randint(0, 27, (m,), generator=generator,
+                               device=device),
+                 torch.rand(m, generator=generator, device=device),
+                 torch.rand(m, generator=generator, device=device))
+
+
+def uniforms(count):
+    """A draws factory: ``count`` uniforms in [0, 1) a link row, as a
+    tuple of ``count`` f32 tensors, drawn in order."""
+    def draws(generator, m, device):
+        return tuple(torch.rand(m, generator=generator, device=device)
+                     for _ in range(count))
+    return draws
 
 
 class Links:
@@ -111,21 +136,21 @@ class Links:
     def state(self):
         return (self.d_a, self.d_b, self.d_n, self.strength)
 
-    def draws(self):
-        """One update's randoms from the generator."""
-        g, m = self.generator, self.n_pad
-        return Draws(
-            torch.randint(0, 27, (m,), generator=g, device=self.device),
-            torch.rand(m, generator=g, device=self.device),
-            torch.rand(m, generator=g, device=self.device))
+    def draws(self, rule=None, generator=None):
+        """One update's randoms for ``rule`` from ``generator`` (this
+        table's own by default, else one on its device): the rule's
+        ``rule.draws`` factory, :func:`cube_draws` if it names none."""
+        factory = getattr(rule, "draws", cube_draws)
+        return factory(self.generator if generator is None else generator,
+                       self.n_pad, self.device)
 
     def update(self, rule, cells, draws=None):
         """Protrusion rewiring (ref e.g. ``examples/intercalation.cu:32-56``):
         ``rule(a, b, X, n_cells, draws) -> (a', b')`` on every link row;
         rows past the active count keep their links.  ``draws`` defaults to
-        :meth:`draws`."""
+        :meth:`draws` of the rule."""
         if draws is None:
-            draws = self.draws()
+            draws = self.draws(rule)
         live = torch.arange(self.n_pad, device=self.d_a.device) < self.d_n
         a2, b2 = rule(self.d_a, self.d_b, cells.d_X, cells.d_n, draws)
         self.d_a = torch.where(live, a2, self.d_a)

@@ -9,7 +9,8 @@ every step; the pair forces run on the Gabriel engine.  Here are its
 constants, its force and friction, its protrusion rule, and the synthetic
 half-space tissue ``benchmarks/bench_gabriel_lattice.py:36-66`` measures
 it on at the reference's own scale (100k cells, growth_w_wall.cu:23).
-Proliferation and VTK output are not ported.
+The example's loop (the relaxation against the wall, proliferation and
+VTK output) is ``yalla_tpu_torch/examples/growth_w_wall.py``.
 
 ``relu_force`` declares the CUDA functor ``growth_w_wall_relu``
 (``csrc/forces.cuh``, the force with ``wall_friction``), which the Gabriel

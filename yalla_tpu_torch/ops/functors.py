@@ -36,6 +36,16 @@ PAIR_FUNCTORS = {
         params=("r_max", "lam", "D_u", "D_v", "f_v", "f_u", "g_u", "m_u",
                 "m_v", "s_u"),
         tile_rows=2),
+    # examples/intercalation_w_gradient.py::force on the point fields and
+    # the seven channels of polarity.polarity_precompute
+    "intercalation_w_gradient": dict(
+        entries={"lattice": "yalla_lattice_pair_intercalation_w_gradient"},
+        friction="friction_w_neighbour",
+        fields=("x", "y", "z", "w", "f", "ctype", "px", "py", "pz", "pcf",
+                "psf", "pst", "psg"),
+        dF=("x", "y", "z", "w", "f", "theta", "phi"),
+        aux=("epi_nbs", "mes_nbs"),
+        params=("r_max",)),
     "sorting_adhesion": dict(
         entries={"tile": "yalla_tile_pair_sorting"},
         friction="friction_w_neighbour",

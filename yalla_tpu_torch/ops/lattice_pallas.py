@@ -9,8 +9,9 @@ in extras order when the layout carries overflow extras (with the scalar
 * ``lattice_pairwise_pallas`` is the kernel wrapper: a CUDA tensor goes to
   ``csrc/lattice_pair.cu``, a CPU tensor to ``lattice_pairwise_plain``.
   The kernel runs forces that declare a device functor
-  (``ops/functors.py``) and refuses the rest on the GPU;
-  :func:`lattice_plan` sizes its bricks of cubes and their shared memory.
+  (``ops/functors.py``: ``branching``, ``intercalation_w_gradient``) and
+  refuses the rest on the GPU; :func:`lattice_plan` sizes its bricks of
+  cubes and their shared memory from the functor's channel count.
 * ``lattice_pairwise_plain`` is generic over any torch force: the
   stencil lattice pass of ``lattice_xla`` plus an extras pass built on
   ``evaluate_pairs``.
@@ -35,11 +36,10 @@ __all__ = ["lattice_pairwise_pallas", "lattice_pairwise_plain",
 DEFAULT_Y_BLOCK = 16
 
 
-# csrc/lattice_pair.cu: channels, output rows, threads per block, the
-# in-reach partners a lane lists, and the shared memory a block may take on
-# the H100 (227 KB; above 48 KB only by opting in)
-LATTICE_CHANS = 12
-LATTICE_SUMS = 13
+# csrc/lattice_pair.cu: threads per block, the in-reach partners a lane
+# lists, and the shared memory a block may take on the H100 (227 KB; above
+# 48 KB only by opting in).  A functor's channels are its fields and old_v
+# x y z: 12 for branching, 16 for intercalation_w_gradient.
 LATTICE_THREADS = 256
 LATTICE_LIST = 8
 SMEM_MAX = 232_448
@@ -61,35 +61,38 @@ class LatticePlan(NamedTuple):
     blocks: int
 
 
-def lattice_smem_bytes(brick, capacity):
-    """Shared-memory bytes of one block (``csrc/lattice_pair.cu``
-    ``smem_bytes``): for each halo slot a list entry of x, y, z and its id
-    (16 bytes) and its other 9 channels, the live count before each cube
-    of each halo x-row, two ints per halo cube, the work list, and two
-    16-bit lists of partners in reach per lane."""
+def lattice_smem_bytes(brick, capacity, n_chans):
+    """Shared-memory bytes of one block of a functor of ``n_chans``
+    channels (``csrc/lattice_pair.cu`` ``smem_bytes``): for each halo slot
+    a list entry of x, y, z and its id (16 bytes) and its other
+    ``n_chans - 3`` channels, the live count before each cube of each halo
+    x-row, two ints per halo cube, the work list, and two 16-bit lists of
+    partners in reach per lane."""
     bz, by, bx = brick
     hx, rows = bx + 2, (by + 2) * (bz + 2)
     H = hx * rows
     B = bz * by * bx
     HC = H * capacity
-    return 16 * HC + 4 * (LATTICE_CHANS - 3) * HC + 4 * rows * (hx + 1) + \
+    return 16 * HC + 4 * (n_chans - 3) * HC + 4 * rows * (hx + 1) + \
         8 * H + 4 * (B + 1) + 4 * B * capacity + \
         4 * LATTICE_LIST * LATTICE_THREADS
 
 
 @functools.lru_cache(maxsize=64)
-def lattice_plan(grid_size, capacity):
+def lattice_plan(grid_size, capacity, n_chans):
     """The brick, halo, shared memory and blocks of the lattice pair kernel
-    on a ``grid_size`` grid of ``capacity`` slots per cube.  Bricks are
-    clipped to the grid; raises if not even one cube and its halo fit the
-    card's shared memory."""
+    on a ``grid_size`` grid of ``capacity`` slots per cube, for a functor
+    of ``n_chans`` channels.  Bricks are clipped to the grid; raises if not
+    even one cube and its halo fit the card's shared memory."""
     gx, gy, gz = grid_dims(grid_size)
     C = int(capacity)
-    if C < 1 or min(gx, gy, gz) < 1 or gx * gy * gz * C >= 2 ** 31:
-        raise ValueError(f"lattice_plan: grid {(gx, gy, gz)}, capacity {C}")
+    if C < 1 or min(gx, gy, gz) < 1 or gx * gy * gz * C >= 2 ** 31 \
+            or n_chans < 3:
+        raise ValueError(f"lattice_plan: grid {(gx, gy, gz)}, capacity {C}, "
+                         f"{n_chans} channels")
     for bz, by, bx in BRICKS:
         brick = (min(bz, gz), min(by, gy), min(bx, gx))
-        smem = lattice_smem_bytes(brick, C)
+        smem = lattice_smem_bytes(brick, C, n_chans)
         if smem <= SMEM_BUDGET:
             break
     if smem > SMEM_MAX:
@@ -279,7 +282,7 @@ def lattice_pairwise_pallas(pw_int, pw_friction, layout, n, cube_size, *,
     else:
         eout = None
         e_args = (None, None, None, None, 0)
-    plan = lattice_plan((gx, gy, gz), C)
+    plan = lattice_plan((gx, gy, gz), C, len(chans))
     lib = _build.library()
     lattice_pairwise_pallas.launches += 1
     _build.check(getattr(lib, spec["entries"]["lattice"])(
