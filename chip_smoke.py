@@ -183,7 +183,33 @@ own line:
     temporary directory, the launch counts set to 0 just before and read
     just after (growth_w_wall: K5 and K2 twice a step; the others none),
     flags 0, the state finite; ms a step with frames and without; the
-    teapot's 70,000-point cut.
+    teapot's 70,000-point cut;
+26. growth_w_wall from one relaxed state with the same draws on the
+    gather Gabriel path and on K5 at C 16 and C 8 (the fullest cube each
+    step, the flags of each run);
+27. thin x-cubes on the settled 500k state (``kernel_profile.THIN_500K``:
+    half-width x-cubes, grid 128 x 64 x 64, C 5, ``x_split`` 2): K2 and
+    K1 at an x reach of 2 cubes against their plain versions on its
+    build, as in phases 2 and 3, with K1's plan, registers and spills
+    (these checks run right after phase 3's); then ``N_STEPS`` steps
+    through ``Solution.take_steps``, every flag 0, K1 and K2 launched
+    twice a step (the record's ``lattice_pair[branching,x_split=2]``);
+28. slot-space rebinning before every pass (``rebin_per_pass``, a mover
+    list of ``REBIN_M_CAP``) at the main path's lattice and on phase 27's
+    thin cubes, ``CADENCE_STEPS`` steps each: every flag 0,
+    ``__err_rebin_overflow`` included, K1 twice a step and K2 once; the
+    largest mover count and ms a step;
+29. the resident cadence (``RESIDENT_500K``: a build every 4 steps, cube
+    1.1, C 10, ``force_r_max`` 1.0), ``RESIDENT_STEPS`` steps through
+    ``Solution.take_steps``, then the same rebinned per chunk: the
+    staleness measures and ``__err_stale`` printed, every other flag 0;
+    the gap deficit of the final state's per-cube extrema on the card
+    and on the CPU, bit for bit;
+30. those cadences on the settled 600-cell state against the CPU, 4
+    steps each: a build every 4 steps with ``force_r_max``, rebinning per
+    step and per pass, thin x-cubes, mover routing with extras, 300
+    seeded links as a generic force; every field within ``isclose``,
+    every flag equal.
 
 It then prints the kernels' JSON record (each kernel's ``device_ms`` is
 its profiler time on its path's main shapes) and, last, the device
@@ -294,6 +320,17 @@ GWW_STEPS = 14
 # the extras sidecar's rows for phase 21's C 4 layout of the embryo (174
 # of its cells overflow 4 a cube)
 IWG_EXTRAS_CAP = 256
+# phases 27-28's thin x-cubes on the 500k state are
+# kernel_profile.THIN_500K
+# phases 28-29: the rebin mover list (bench.py's rule at rebin_scale 2)
+# and the steps of each timed rebin run
+REBIN_M_CAP = 131_072
+CADENCE_STEPS = 6
+# phase 29: the resident cadence, cube 1.1 at C 10 (42 cells spill)
+RESIDENT_500K = dict(grid_size=64, capacity=10, z_block=2, rebuild_every=4,
+                     extras_cap=2048, extras_block_cap=24, force_r_max=1.0)
+RESIDENT_CUBE = 1.1
+RESIDENT_STEPS = 8
 
 
 def cuda_ms(fn, reps):
@@ -393,16 +430,19 @@ def ptxas_report(names):
     return report
 
 
-def stencil_candidates(cube, gx, gy, gz):
-    """Sum over the points of the live points in the 27 cubes around each
-    point's cube (the candidates a lattice pass must test), itself
-    included.  ``cube``: int64 cube ids of the live points."""
+def stencil_candidates(cube, gx, gy, gz, x_split=1):
+    """Sum over the points of the live points in the cubes of each point's
+    stencil (3 x 3 in z and y by 2 x_split + 1 in x: the candidates a
+    lattice pass must test), itself included.  ``cube``: int64 cube ids
+    of the live points."""
     import torch
+    k = x_split
     counts = torch.bincount(cube, minlength=gx * gy * gz).reshape(
         gz, gy, gx).to(torch.float64)
-    pad = torch.nn.functional.pad(counts, (1, 1, 1, 1, 1, 1))
+    pad = torch.nn.functional.pad(counts, (k, k, 1, 1, 1, 1))
     near = sum(pad[dz:dz + gz, dy:dy + gy, dx:dx + gx]
-               for dz in range(3) for dy in range(3) for dx in range(3))
+               for dz in range(3) for dy in range(3)
+               for dx in range(2 * k + 1))
     return float((counts * near).sum())
 
 
@@ -444,18 +484,19 @@ def lattice_kernel_checks(tag, X, old_v, n, cube, engine, plain_reps=2):
     from yalla_tpu_torch.ops.common import (cube_ids, friction_w_neighbour,
                                             grid_dims)
     from yalla_tpu_torch.ops.lattice_pallas import (lattice_pairwise_pallas,
-                                                    lattice_pairwise_plain)
+                                                    lattice_pairwise_plain,
+                                                    lattice_plan)
     from yalla_tpu_torch.ops.lattice_pour import pour_pallas, pour_plain
     from yalla_tpu_torch.ops.lattice_xla import lattice_build, sort_by_cube
     from yalla_tpu_torch.solvers import augment
     dev = X.x.device
-    gs, C = engine.grid_size, engine.capacity
+    gs, C, xs = engine.grid_size, engine.capacity, engine.x_split
     dims = grid_dims(gs)
     n_slots = dims[0] * dims[1] * dims[2] * C
     force = B.make_force(B.Params())
 
     # ---- K2: pour kernel against its plain version -----------------------
-    cs = sort_by_cube(X, old_v, n, cube, gs, C)
+    cs = sort_by_cube(X, old_v, n, cube, gs, C, x_split=xs)
     pour_err = check_pour(tag, cs, gs, C)
 
     def k2():
@@ -500,11 +541,12 @@ def lattice_kernel_checks(tag, X, old_v, n, cube, engine, plain_reps=2):
     del lib_out, rows, dst, placed, want, S, cs
 
     # ---- K1: lattice pair kernel against its plain version ---------------
-    lay = lattice_build(X, old_v, n, cube, gs, C, engine.extras_cap)
+    lay = lattice_build(X, old_v, n, cube, gs, C, engine.extras_cap,
+                        x_split=xs)
     lay = lay._replace(T=augment(lay.T, n, B.precompute),
                        E=augment(lay.E, n, B.precompute))
     kw = dict(grid_size=gs, capacity=C, z_block=engine.z_block,
-              extras_block_cap=engine.extras_block_cap)
+              extras_block_cap=engine.extras_block_cap, x_split=xs)
 
     def k1():
         return lattice_pairwise_pallas(force, friction_w_neighbour, lay,
@@ -531,17 +573,18 @@ def lattice_kernel_checks(tag, X, old_v, n, cube, engine, plain_reps=2):
     n_live = int((lay.pid < lay.slot_of.shape[0]).sum()) + int(lay.n_extras)
     live_cube = torch.cat([
         torch.nonzero(lay.pid < lay.slot_of.shape[0]).squeeze(1) // C,
-        cube_ids(lay.E, engine.extras_cap, cube, gs)[
+        cube_ids(lay.E, engine.extras_cap, cube, gs, xs)[
             lay.epid < lay.slot_of.shape[0]]])
     in_reach = float(want[1].sum() + want[4][1].sum())
-    candidates = stencil_candidates(live_cube, *dims)
+    candidates = stencil_candidates(live_cube, *dims, xs)
     pair_bound = bound(
         n_live * 12 * 4 + n_slots + (n_slots + engine.extras_cap) * 13 * 4,
         candidates * OPS_DIST + in_reach * OPS_PER_PAIR["branching"])
     print(f"K1 work on the {tag} build: {candidates / n_live:.2f} live "
           f"candidates (self included) and {in_reach / n_live:.2f} partners "
           f"in reach per cell, {n_live} cells in {n_slots} slots (grid "
-          f"{gs}, C {C})")
+          f"{gs}, C {C}, x_split {xs}, plan "
+          f"{lattice_plan(dims, C, 12, xs)})")
     pair_dev = profiled_ms(k1, ["lattice_pair_kernel", "extras_pair_kernel"])
     print(f"K1 lattice pair on the {tag} build: {int(lay.n_extras)} live "
           f"extras, counters and flags exact, max abs err {pair_err:.3g} "
@@ -2331,6 +2374,261 @@ def grid_examples(dev):
               f"{bare_s * 1e3 / GRID_STEPS:.3f} ms a step without")
 
 
+def thin_cube_checks(dev):
+    """Phase 27's kernel checks: K2 and K1 at ``xr = 2`` against their
+    plain versions on the thin x-cubes' build of the 500k state
+    (``kernel_profile.THIN_500K``: grid 128 x 64 x 64 of half-width
+    x-cubes, C 5), as in phases 2 and 3, with K1's plan, registers and
+    spills.  ``main`` runs them beside phase 3: late in a long process
+    torch.profiler has returned eight windows in a row without device
+    events.  Returns the kernels' records."""
+    from yalla_tpu_torch.interop import load_settled
+    from yalla_tpu_torch.kernel_profile import THIN_500K
+    from yalla_tpu_torch.models import branching as B
+    from yalla_tpu_torch.solvers import LatticeEngine
+    X, old_v = load_settled(SETTLED, B.Cell, dev)
+    checks = lattice_kernel_checks("500k thin (x_split 2)", X, old_v,
+                                   N_CELLS, 1.0, LatticeEngine(**THIN_500K))
+    ptxas_report(["lattice_pair_kernel", "extras_pair_kernel"])
+    return checks
+
+
+def thin_cubes(dev):
+    """Phase 27: thin x-cubes on the 500k state at the per-pass rebuild,
+    ``N_STEPS`` steps of ``Solution.take_steps`` with every flag 0, K1
+    and K2 launched twice a step (their checks: :func:`thin_cube_checks`).
+    Returns the launch counts."""
+    from yalla_tpu_torch.kernel_profile import THIN_500K
+    from yalla_tpu_torch.models import branching as B
+    from yalla_tpu_torch.solvers import LatticeEngine
+    p = B.Params()
+    engine = LatticeEngine(**THIN_500K)
+    print(f"thin x-cubes: {engine}")
+    sol = solution(SETTLED, N_CELLS, engine, dev, 1.0)
+    launches, _, _ = run_slice("thin x-cubes slice", sol, N_CELLS, N_STEPS,
+                               p.dt, B.make_force(p),
+                               ["pour", "lattice_pair"],
+                               precompute=B.precompute)
+    return launches
+
+
+def movers(lay, cube, grid_size, capacity, x_split):
+    """The lattice cells whose cube changed since ``lay`` was binned: the
+    mover count ``lattice_rebin`` bounds by its ``m_cap`` (0-d tensor)."""
+    import torch
+    from yalla_tpu_torch.ops.common import cube_coord, grid_dims
+    gx, gy, gz = grid_dims(grid_size)
+    T = lay.T
+    occ = lay.pid < lay.slot_of.shape[0]
+    cid = (cube_coord(T.z, cube, gz) * gy + cube_coord(T.y, cube, gy)) \
+        * gx + cube_coord(T.x, cube / x_split, gx)
+    home = torch.arange(occ.shape[0], device=occ.device) // capacity
+    return (occ & (cid != home)).sum()
+
+
+def cadence_run(tag, engine, cube, n_steps, rebuild_every, rebin_m_cap,
+                rebin_per_pass, expect_k2, check=True):
+    """``n_steps`` of ``lattice_heun_steps`` on the settled 500k state
+    with ``engine``'s lattice at a rebin cadence, twice: once with every
+    ``lattice_rebin`` call counting its movers (the largest printed),
+    once timed with the launch counts set to 0 just before and read just
+    after (K1 twice a step, K2 ``expect_k2`` times).  With ``check``
+    every flag must be 0.  Returns (aux, launches, ms a step)."""
+    import torch
+    from yalla_tpu_torch.interop import load_settled
+    from yalla_tpu_torch.models import branching as B
+    from yalla_tpu_torch.ops import lattice_xla as TL
+    from yalla_tpu_torch.ops.common import friction_w_neighbour
+    p = B.Params()
+    force = B.make_force(p)
+    X, old_v = load_settled(SETTLED, B.Cell, torch.device("cuda"))
+    e = engine
+
+    def run():
+        return TL.lattice_heun_steps(
+            n_steps, rebuild_every, force, friction_w_neighbour, "com",
+            e.grid_size, e.capacity, e.z_block, X, old_v, N_CELLS, p.dt,
+            cube, 0, B.precompute, True, None, None, e.force_r_max,
+            e.extras_cap, e.extras_block_cap, rebin_m_cap, rebin_per_pass,
+            e.route_movers, e.x_split)
+    rebin, most = TL.lattice_rebin, [torch.zeros((), dtype=torch.int64,
+                                                 device=X.x.device)]
+
+    def counted(lay, *args, **kw):
+        most[0] = torch.maximum(most[0], movers(lay, cube, e.grid_size,
+                                                e.capacity, e.x_split))
+        return rebin(lay, *args, **kw)
+    TL.lattice_rebin = counted
+    try:
+        run()
+    finally:
+        TL.lattice_rebin = rebin
+    wrappers = reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, aux = run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    launches = {k: w.launches for k, w in wrappers.items()}
+    flags = {k: float(v.float().max()) for k, v in aux.items()
+             if k.startswith("__err_")}
+    if check and any(flags.values()):
+        raise AssertionError(f"{tag}: flags set {flags}")
+    if (launches["lattice_pair"], launches["pour"]) != (2 * n_steps,
+                                                        expect_k2):
+        raise AssertionError(f"{tag}: launches {launches}")
+    print(f"{tag}: {n_steps} steps, largest mover count {int(most[0])} "
+          f"(m_cap {rebin_m_cap}), flags {flags}, launches {launches}; "
+          f"{ms:.3f} ms/step")
+    return aux, launches, ms
+
+
+def rebin_cadences(dev):
+    """Phase 28: slot-space rebinning before every pass (``rebin_per_pass``,
+    a mover list of ``REBIN_M_CAP``) at the main path's configuration
+    (``bench_state.json`` ``branching_500000``: 64^3, C 8) and on phase
+    27's thin x-cubes: every flag 0, ``__err_rebin_overflow`` included;
+    the largest mover count and ms a step.  Returns the launch counts."""
+    from yalla_tpu_torch.interop import bench_config, bench_engine
+    from yalla_tpu_torch.kernel_profile import THIN_500K
+    from yalla_tpu_torch.solvers import LatticeEngine
+    cfg = bench_config(ROOT / "bench_state.json", BENCH_KEY)
+    runs = {}
+    for tag, engine, cube in (
+            ("rebin per pass (64^3, C 8)", bench_engine(cfg),
+             float(cfg["cube"])),
+            ("rebin per pass, thin x-cubes (x_split 2)",
+             LatticeEngine(**THIN_500K), 1.0)):
+        runs[tag] = cadence_run(tag, engine, cube, CADENCE_STEPS, 1,
+                                REBIN_M_CAP, True, 1)[1]
+    return runs
+
+
+def resident_cadences(dev):
+    """Phase 29: the resident cadence (``RESIDENT_500K``: a build every 4
+    steps, cube 1.1 at C 10, ``force_r_max`` 1.0) for ``RESIDENT_STEPS``
+    steps of ``Solution.take_steps`` with ``check_errors=False``, then the
+    same with slot-space rebinning per chunk (``REBIN_M_CAP``).  Prints
+    ``stale_max_disp``, ``stale_shear_closure`` and ``__err_stale``;
+    every other flag must be 0.  Then the staleness certificate's gap
+    deficit of the final state's per-cube extrema on the card against the
+    same extrema moved to the CPU, bit for bit.  Returns the launch
+    counts of the ``Solution`` run."""
+    import torch
+    from yalla_tpu_torch.models import branching as B
+    from yalla_tpu_torch.ops import lattice_xla as TL
+    from yalla_tpu_torch.solvers import LatticeEngine
+    p = B.Params()
+    engine = LatticeEngine(**RESIDENT_500K)
+    sol = solution(SETTLED, N_CELLS, engine, dev, RESIDENT_CUBE)
+    wrappers = reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aux = sol.take_steps(RESIDENT_STEPS, p.dt, B.make_force(p),
+                         precompute=B.precompute, check_errors=False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / RESIDENT_STEPS
+    launches = {k: w.launches for k, w in wrappers.items()}
+    expect = (2 * RESIDENT_STEPS, RESIDENT_STEPS // engine.rebuild_every)
+    if (launches["lattice_pair"], launches["pour"]) != expect:
+        raise AssertionError(f"resident cadence: launches {launches}")
+
+    def report(tag, aux, ms):
+        stale = {k: float(aux[k]) for k in
+                 ("stale_max_disp", "stale_shear_closure", "__err_stale")}
+        others = {k: float(v.float().max()) for k, v in aux.items()
+                  if k.startswith("__err_") and k != "__err_stale"}
+        if any(others.values()):
+            raise AssertionError(f"{tag}: flags set {others}")
+        margin = RESIDENT_CUBE - engine.force_r_max
+        print(f"{tag}: {RESIDENT_STEPS} steps, {stale} (binning margin "
+              f"{margin:.2f}), other flags {others}; {ms:.3f} ms/step")
+    report("resident cadence (rebuild_every 4, cube 1.1, C 10)", aux, ms)
+    aux2, _, ms2 = cadence_run(
+        "resident cadence, rebin per chunk", engine, RESIDENT_CUBE,
+        RESIDENT_STEPS, engine.rebuild_every, REBIN_M_CAP, False, 1,
+        check=False)
+    report("resident cadence, rebin per chunk", aux2, ms2)
+    lay = TL.lattice_build(sol.d_X, sol.d_old_v, N_CELLS, RESIDENT_CUBE,
+                           engine.grid_size, engine.capacity,
+                           engine.extras_cap)
+    P, Q = TL.cube_extrema(lay, lay.T, lay.E, RESIDENT_CUBE,
+                           engine.grid_size)
+    on_card = TL._gap_deficit(P, Q, engine.grid_size)
+    on_cpu = TL._gap_deficit(P.cpu(), Q.cpu(), engine.grid_size)
+    if on_card.cpu().numpy().tobytes() != on_cpu.numpy().tobytes():
+        raise AssertionError(f"gap deficit: card {float(on_card)!r} != "
+                             f"CPU {float(on_cpu)!r}")
+    print(f"gap deficit of the final state's extrema: card {float(on_card)!r}"
+          f" == CPU {float(on_cpu)!r} bit for bit (closure "
+          f"{float(on_card) + RESIDENT_CUBE:.6f})")
+    return launches
+
+
+def cadences_gpu_vs_cpu(dev):
+    """Phase 30: the new cadences on the settled 600-cell state (640 rows,
+    cube 1.1), 4 steps on the card against the same steps on the CPU
+    (the plain versions): a build every 4 steps with ``force_r_max``,
+    rebinning per step and per pass, thin x-cubes, mover routing with
+    extras at a build every 4 steps, and 300 seeded links as a generic
+    force at a build every 4 steps.  Every field within the reference's
+    ``isclose``, every flag equal."""
+    import numpy as np
+    import torch
+    from yalla_tpu_torch.interop import load_settled
+    from yalla_tpu_torch.links import Links, link_forces
+    from yalla_tpu_torch.models import branching as B
+    from yalla_tpu_torch.ops.common import friction_w_neighbour
+    from yalla_tpu_torch.ops.lattice_xla import lattice_heun_steps
+    p = B.Params()
+    force = B.make_force(p)
+    rng = np.random.default_rng(0)
+    la, lb = (rng.integers(0, N_SMALL, 300) for _ in range(2))
+    base = dict(grid=32, C=8, every=4, r_max=1.0, extras=0, block=16,
+                m=0, per_pass=False, route=0.0, xs=1, links=False)
+    cases = {
+        "build every 4, force_r_max": {},
+        "rebin per step": dict(every=1, m=4096),
+        "rebin per pass": dict(every=1, r_max=None, m=4096, per_pass=True),
+        "thin x-cubes": dict(grid=(64, 32, 32), C=4, every=1, r_max=None,
+                             extras=64, xs=2),
+        "route_movers 2.0, extras": dict(C=4, extras=640, block=640,
+                                         route=2.0),
+        "300 links": dict(links=True),
+    }
+    for tag, kw in cases.items():
+        c = dict(base, **kw)
+        ends = {}
+        for d in ("cpu", dev):
+            X, ov = load_settled(SETTLED_SMALL, B.Cell, d)
+            gen = gen_args = None
+            if c["links"]:
+                links = Links(300, strength=0.2, seed=0, device=d)
+                links.h_a[:300], links.h_b[:300] = la, lb
+                links.copy_to_device()
+                gen = link_forces(links)
+                gen_args = gen.args
+            Xe, ove, aux = lattice_heun_steps(
+                4, c["every"], force, friction_w_neighbour, "com", c["grid"],
+                c["C"], 2, X, ov, N_SMALL, p.dt, 1.1, 0, B.precompute, True,
+                gen, gen_args, c["r_max"], c["extras"], c["block"], c["m"],
+                c["per_pass"], c["route"], c["xs"])
+            ends[d] = (Xe, {k: float(v.float().max()) for k, v in aux.items()
+                            if k.startswith("__err_")})
+        torch.cuda.synchronize()
+        if ends[dev][1] != ends["cpu"][1]:
+            raise AssertionError(f"{tag}: flags card {ends[dev][1]} != CPU "
+                                 f"{ends['cpu'][1]}")
+        for f in B.Cell._fields:
+            a = getattr(ends[dev][0], f).cpu().numpy()[:N_SMALL]
+            b = getattr(ends["cpu"][0], f).numpy()[:N_SMALL]
+            if not (np.abs(a - b) <= 1e-6 + 1e-2 * np.abs(b)).all():
+                raise AssertionError(f"{tag} field {f}: card and CPU "
+                                     f"disagree ({np.abs(a - b).max():g})")
+        print(f"{N_SMALL} cells, {tag}: 4 steps on the card within isclose "
+              f"of the CPU in every field, flags equal {ends['cpu'][1]}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2367,8 +2665,8 @@ def main():
     # ---- K2 and K1 against their plain versions on the 500k build --------
     checks = lattice_kernel_checks("500k", X, old_v, N_CELLS, cube, engine)
     ptxas_report(["pour_kernel"])
-    ptxas_report(["lattice_pair_kernel", "extras_pair_kernel"])
     del X, old_v
+    thin_checks = thin_cube_checks(dev)
 
     # ---- the slice on a small input, against the plain path on the CPU ---
     # (the CPU path is the one the tests hold against the JAX package)
@@ -2430,6 +2728,15 @@ def main():
     more_launches, k5_example = more_example_runs(dev)
     gww_capacity(dev)
 
+    # ---- the rest of the lattice integrator: thin x-cubes, slot-space
+    # rebinning, the resident cadence, and all of them against the CPU --
+    t_cadences = time.perf_counter()
+    thin_launches = thin_cubes(dev)
+    rebin_cadences(dev)
+    resident_cadences(dev)
+    cadences_gpu_vs_cpu(dev)
+    print(f"phases 27-30: {time.perf_counter() - t_cadences:.1f} s")
+
     lattice = (("pour", "yalla_tpu_torch/csrc/pour.cu",
                 "yalla_tpu/ops/lattice_pour.py:244"),
                ("lattice_pair", "yalla_tpu_torch/csrc/lattice_pair.cu",
@@ -2486,6 +2793,14 @@ def main():
     kernels += [{"name": f"{name}[flagship]", "route": "cuda", "source": src,
                  "replaces": tpu, "launches": full_launches[name],
                  **full_checks[name]} for name, src, tpu in lattice]
+    # K1 at xr = 2 on the thin x-cubes of the 500k state, launched by
+    # phase 27's run
+    kernels.append({"name": "lattice_pair[branching,x_split=2]",
+                    "route": "cuda",
+                    "source": "yalla_tpu_torch/csrc/lattice_pair.cu",
+                    "replaces": "yalla_tpu/ops/lattice_pallas.py:672",
+                    "launches": thin_launches["lattice_pair"],
+                    **thin_checks["lattice_pair"]})
     # each kernel's launches on the flagship's paths and on the examples'
     # runs of phases 22 and 25, beside its own path's
     for k in kernels:

@@ -187,6 +187,15 @@ PAIR_CASES = {
     # the intercalation_w_gradient functor (16 channels): grid 16, C 8,
     # half the cells epithelial, with overflow extras
     "intercalation_w_gradient": (3000, 3072, 0.45, 15, 16, 8, 2048),
+    # thin x-cubes (x_split 2 and 3: the ragged block of cells on 22 and
+    # 33 x-cubes), at a capacity that holds every cube and at one that
+    # spills hundreds into the extras
+    "xsplit2_ragged": (4913, 4992, 0.6, 17, (22, 11, 11), 5, 0, 2),
+    "xsplit2_ragged_extras": (4913, 4992, 0.6, 17, (22, 11, 11), 3, 2048,
+                              2),
+    "xsplit3_ragged": (4913, 4992, 0.6, 17, (33, 11, 11), 5, 0, 3),
+    "xsplit3_ragged_extras": (4913, 4992, 0.6, 17, (33, 11, 11), 3, 2048,
+                              3),
 }
 IWG = "intercalation_w_gradient"
 
@@ -211,11 +220,12 @@ def _iwg_cells(h, n, seed):
 
 
 def _pair_case(case, device):
-    """(layout, n, grid size, capacity, force) of one K1 edge shape on
-    ``device``."""
+    """(layout, n, grid size, capacity, force, x_split) of one K1 edge
+    shape on ``device``."""
     if PAIR_CASES[case] is None:
-        return _layout(device), N, GS, C, B.make_force(B.Params())
-    n, n_pad, spacing, side, gs, cap, e_cap = PAIR_CASES[case]
+        return _layout(device), N, GS, C, B.make_force(B.Params()), 1
+    n, n_pad, spacing, side, gs, cap, e_cap, *xs = PAIR_CASES[case]
+    x_split = xs[0] if xs else 1
     h, ov = _branching_cells(max(n, 1), n_pad, spacing, side, seed=3)
     Cell, force, pre = B.Cell, B.make_force(B.Params()), B.precompute
     if case == IWG:
@@ -231,17 +241,19 @@ def _pair_case(case, device):
         h = {f: np.where(np.arange(n_pad) < keep.sum(), a[order], 0)
              .astype(np.float32) for f, a in h.items()}
         n = int(keep.sum())
-    if case.startswith("ragged"):
+    if "ragged" in case:
         # shift the block of cells from [-4.9, 4.9] to cubes 0 .. 10
         for f in "xyz":
             h[f][:n] += 0.5
     X = Cell(*(torch.as_tensor(h[f], device=device) for f in Cell._fields))
     ovt = Float3(*(torch.as_tensor(ov[f], device=device) for f in "xyz"))
-    lay = lattice_build(X, ovt, n, 1.0, gs, cap, e_cap)
+    lay = lattice_build(X, ovt, n, 1.0, gs, cap, e_cap, x_split=x_split)
     assert int(lay.n_dropped) == 0 and int(lay.n_oob) == 0
-    assert case not in ("ragged_extras", IWG) or int(lay.n_extras) > 100
+    assert not (case.endswith("extras") or case == IWG) or \
+        int(lay.n_extras) > 100
     E = None if lay.E is None else augment(lay.E, n, pre)
-    return (lay._replace(T=augment(lay.T, n, pre), E=E), n, gs, cap, force)
+    return (lay._replace(T=augment(lay.T, n, pre), E=E), n, gs, cap, force,
+            x_split)
 
 
 @pytest.mark.parametrize("case", list(PAIR_CASES))
@@ -250,11 +262,14 @@ def test_pair_kernel_matches_plain(cuda, case):
     C 4, with extras) and on edge shapes: an empty lattice, cells only in
     the boundary cubes, C 1 and C 16 (both with overflow extras), and a
     grid whose bricks are ragged in every axis, without and with extras;
-    and with the intercalation_w_gradient functor (its 16 channels, its
+    with the intercalation_w_gradient functor (its 16 channels, its
     two neighbour counts exact; dF within the tolerance plus 1e-6 of the
-    slot's sum of term magnitudes, for phi near the poles)."""
-    lay, n, gs, cap, force = _pair_case(case, cuda)
-    kw = dict(grid_size=gs, capacity=cap, z_block=2, extras_block_cap=16)
+    slot's sum of term magnitudes, for phi near the poles); and on thin
+    x-cubes (x_split 2 and 3) of a ragged grid, without and with
+    extras."""
+    lay, n, gs, cap, force, x_split = _pair_case(case, cuda)
+    kw = dict(grid_size=gs, capacity=cap, z_block=2, extras_block_cap=16,
+              x_split=x_split)
     before = lattice_pairwise_pallas.launches
     got = lattice_pairwise_pallas(force, friction_w_neighbour, lay, n, 1.0,
                                   **kw)

@@ -9,6 +9,7 @@ trajectories within the reference's ``isclose`` (atol 1e-6 + rtol 1e-2).
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from yalla_tpu.ops import grid_xla as JG
 from yalla_tpu.ops.common import friction_w_neighbour as j_friction
 from yalla_tpu.solvers import GabrielEngine as JGabrielEngine
 from yalla_tpu.solvers import GridEngine as JGridEngine
+from yalla_tpu.solvers import LatticeEngine as JLatticeEngine
 from yalla_tpu_torch.dtypes import Float3, pt_zeros_like
 from yalla_tpu_torch.interop import engine_from
 from yalla_tpu_torch.ops import grid_xla as TG
@@ -263,22 +265,41 @@ def test_generic_forces_and_friction(solver):
     assert isclose(h.x[1] - h.x[0], 0.75)
 
 
+def _j_push(X, n):
+    """``_push`` in the JAX package."""
+    dX = jax.tree.map(jnp.zeros_like, X)
+    return dX.replace(x=dX.x.at[1].set(1.0))
+
+
 def test_lattice_integrator_refuses_generic_forces():
-    """The slot-order lattice integrator takes no generic force, so
-    ``take_steps`` runs one through ``heun_steps`` on the lattice engine's
-    ``pairwise`` (the push moves the lone point as on every engine); only
-    a cadence other than the per-pass rebuild is refused."""
+    """Generic forces on the lattice: at the per-pass rebuild
+    ``take_steps`` runs them through ``heun_steps`` on the lattice
+    engine's ``pairwise`` (the push moves the lone point as on every
+    engine); at ``rebuild_every=4`` inside the slot-order integrator, as
+    the JAX package does, on the JAX package's trajectory (atol 1e-5)."""
     pts = Solution(Float3, 2, engine=LatticeEngine(grid_size=16),
                    device="cpu")
     pts.h_X.z[:2] = [5, 0]
     pts.take_steps(1, 1.0, spring, gen_forces=_push)
     h = pts.copy_to_host()
     assert isclose(h.x[1], 0.5) and isclose(h.x[0], -0.5)
-    pts = Solution(Float3, 2, engine=LatticeEngine(grid_size=16,
-                                                   rebuild_every=4),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="generic forces"):
-        pts.take_steps(4, 0.1, spring, gen_forces=_push)
+    n, pos, _ = random_tissue(seed=3, n=60, n_pad=128, half=2.0)
+    j = JSolution(JFloat3, n, engine=JLatticeEngine(grid_size=16,
+                                                    rebuild_every=4))
+    t = Solution(Float3, n, engine=LatticeEngine(grid_size=16,
+                                                 rebuild_every=4),
+                 device="cpu")
+    for k, f in enumerate("xyz"):
+        getattr(j.h_X, f)[:n] = pos[:n, k]
+        getattr(t.h_X, f)[:n] = pos[:n, k]
+    j.copy_to_device()
+    t.copy_to_device()
+    j.take_steps(4, 0.1, j_spring, gen_forces=_j_push)
+    aux = t.take_steps(4, 0.1, spring, gen_forces=_push)
+    assert "stale_max_disp" in aux
+    for a, b in zip(t.d_X, j.d_X):
+        np.testing.assert_allclose(a.numpy()[:n], np.asarray(b)[:n],
+                                   rtol=0, atol=1e-5)
 
 
 def test_check_grid_capacity_matches_jax():

@@ -1,6 +1,7 @@
 """The lattice path's edges, on the CPU: the extras block-table overflow
-flag on grids the JAX kernel refuses, and the integrator's refusal of the
-options the port does not implement.
+flag on grids the JAX kernel refuses, and the integrator's refusals: of
+the combinations the JAX integrator asserts against, and of its XLA pass
+(``pallas=False``), which the port does not implement.
 
 ``extras_block_overflow`` is counting, so it is exact: against a numpy
 count of the same tables on every grid, and against the JAX kernel's own
@@ -93,24 +94,20 @@ def test_extras_block_overflow_on_any_grid(grid, zb, yb, jax_accepts,
         assert got == float(j_over)
 
 
-REFUSED = {"rebuild_every": dict(rebuild_every=4),
-           "rebin_m_cap": dict(rebin_m_cap=64),
-           "rebin_per_pass": dict(rebin_per_pass=True),
-           "x_split": dict(x_split=2),
-           "route_movers": dict(route_movers=0.5),
-           "gen": dict(gen=lambda X, n: X),
-           "pallas": dict(pallas=False)}
+# the option the port refuses: its pair pass always runs through the
+# kernel wrapper (the JAX package's XLA pass has no separate port)
+REFUSED = {"pallas": dict(pallas=False)}
 
 
 def _heun(**options):
     X = pt_from_numpy(tdt.Float3, _points((8, 8, 8), seed=0), device="cpu")
-    kw = dict(rebuild_every=1)
+    kw = dict(rebuild_every=1, n_steps=1)
     kw.update(options)
-    rebuild_every = kw.pop("rebuild_every")
+    rebuild_every, n_steps = kw.pop("rebuild_every"), kw.pop("n_steps")
 
     def force(Xi, r, dist, i, j):
         return r
-    return TL.lattice_heun_steps(1, rebuild_every, force,
+    return TL.lattice_heun_steps(n_steps, rebuild_every, force,
                                  friction_w_neighbour, "com", 8, 8, 2, X, X,
                                  N, 0.1, 1.0, 0, **kw)
 
@@ -121,6 +118,48 @@ def test_lattice_heun_steps_refuses_unported_option(option):
         _heun(**REFUSED[option])
 
 
+def _j_gen(X, n, args):
+    return X
+
+
+# the combinations the JAX integrator asserts against
+# (yalla_tpu/ops/lattice_xla.py:745, :757-760, :763-764, :1142), with
+# words of the port's message
+JAX_ASSERTS = {
+    "n_steps_not_a_multiple": (dict(n_steps=3, rebuild_every=2),
+                               "multiple of rebuild_every"),
+    "x_split_resident": (dict(n_steps=2, rebuild_every=2, x_split=2),
+                         "x_split"),
+    "x_split_rebin_per_step": (dict(x_split=2, rebin_m_cap=64), "x_split"),
+    "extras_with_generic_forces": (dict(extras_cap=64, gen=_j_gen),
+                                   "generic forces"),
+    "rebin_per_pass_resident": (dict(n_steps=2, rebuild_every=2,
+                                     rebin_m_cap=64, rebin_per_pass=True),
+                                "rebin_per_pass"),
+}
+
+
+@pytest.mark.parametrize("case", list(JAX_ASSERTS))
+def test_lattice_heun_steps_raises_where_jax_asserts(case):
+    """The port raises ``ValueError`` on exactly the combinations the JAX
+    integrator asserts against (it asserts while tracing, so the JAX call
+    stops before any work)."""
+    options, words = JAX_ASSERTS[case]
+    with pytest.raises(ValueError, match=words):
+        _heun(**options)
+    kw = dict(options)
+    rebuild_every, n_steps = kw.pop("rebuild_every", 1), kw.pop("n_steps", 1)
+    if "gen" in kw:
+        from yalla_tpu.solvers import GenericForce
+        kw["gen"] = GenericForce(kw["gen"])
+    jX = jdt.Float3(*(jnp.zeros(128) for _ in range(3)))
+    with pytest.raises(AssertionError):
+        JL.lattice_heun_steps(n_steps, rebuild_every, lambda *a: a[1],
+                              None, "com", 8, 8, 2, jX, jX, jnp.int32(1),
+                              jnp.float32(0.1), jnp.float32(1.0),
+                              jnp.int32(0), pallas=True, **kw)
+
+
 def test_lattice_heun_steps_refuses_without_asserts():
     """The refusals are raised, not asserted: they hold under ``python -O``,
     which strips asserts."""
@@ -128,12 +167,20 @@ def test_lattice_heun_steps_refuses_without_asserts():
         "import torch\n"
         "from yalla_tpu_torch.ops.lattice_xla import lattice_heun_steps\n"
         "assert False, 'asserts are stripped'\n"
-        "try:\n"
-        "    lattice_heun_steps(1, 4, None, None, 'com', 8, 8, 2, None,\n"
-        "                       None, 0, 0.1, 1.0, 0)\n"
-        "except NotImplementedError as e:\n"
-        "    print('refused:', e)\n")
+        "cases = [(1, 4, {}), (2, 2, dict(x_split=2)),\n"
+        "         (1, 1, dict(x_split=2, rebin_m_cap=64)),\n"
+        "         (1, 1, dict(extras_cap=64, gen=print)),\n"
+        "         (2, 2, dict(rebin_m_cap=64, rebin_per_pass=True)),\n"
+        "         (1, 1, dict(pallas=False))]\n"
+        "for steps, every, kw in cases:\n"
+        "    try:\n"
+        "        lattice_heun_steps(steps, every, None, None, 'com', 8, 8,\n"
+        "                           2, None, None, 0, 0.1, 1.0, 0, **kw)\n"
+        "    except (ValueError, NotImplementedError) as e:\n"
+        "        print('refused:', type(e).__name__, e)\n")
     run = subprocess.run([sys.executable, "-O", "-c", code], cwd=REPO,
                          capture_output=True, text=True)
     assert run.returncode == 0, run.stderr
-    assert "refused:" in run.stdout and "rebuild_every" in run.stdout
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("refused:")]
+    assert len(lines) == 6 and "rebuild_every" in lines[0]
+    assert "NotImplementedError" in lines[-1]

@@ -3,13 +3,14 @@
 // Replaces yalla_tpu/ops/lattice_pallas.py::lattice_pairwise_pallas (with its
 // overflow-extras sidecar, _extras_tables and the extras-extras merge).
 // What it computes, not its TPU layout: for every occupied slot i, the sums
-// over partners j in the 27-cube stencil with dist < cube_size of a force
+// over partners j in its stencil (27 cubes; 9 (2 xr + 1) with thin x-cubes,
+// below) with dist < cube_size of a force
 // functor's sums (its dF fields and aux channels), the friction and
 // friction * old_v[j].  The self-pair uses the full force (the Meinhardt
 // reaction of branching, the degradation of intercalation_w_gradient);
 // every other pair the off-diagonal force.  Each overflow extra gets the
 // same sums over lattice partners, extras partners and its own diagonal,
-// and every lattice slot also sees the extras of its 27 cubes.  Empty
+// and every lattice slot also sees the extras of its stencil.  Empty
 // slots and dead extras get zero sums.
 //
 // The kernel is generic in its functor (forces.cuh): the channel count is
@@ -19,6 +20,12 @@
 // functor has its own C entry point (YALLA_LATTICE_ENTRY below).
 //
 // The force is a device functor shared with the tile kernel (forces.cuh).
+//
+// Thin x-cubes (the JAX package's x_split = xr > 1): x is binned at
+// cube_size / xr, so a cell's stencil is 3 x 3 cubes in z and y by
+// 2 xr + 1 in x, and the halo reaches xr cubes on each side in x.  The
+// cutoff stays cube_size.  xr = 1 runs its own instantiation (kThin
+// false), with the reach a compile-time 1.
 //
 // Bound (branching): memory.  A pass writes 13 sums for every slot (109 MB
 // at gs 64^3, C 8) and reads the occupied slots' channels and the
@@ -40,15 +47,15 @@
 //   lattice_plan picks it from C and the channel count: 2 x 4 x 8 for
 //   branching at C <= 8, smaller above, clipped to the grid; a ragged
 //   brick at the grid's edge is masked).
-// * It stages its halo, (bz+2) x (by+2) x (bx+2) cubes, in shared memory:
-//   first the occupancy, every load independent; then, one warp per
-//   x-row of (bx+2) * C contiguous slots, cp.async copies of the live
+// * It stages its halo, (bz+2) x (by+2) x (bx+2xr) cubes, in shared
+//   memory: first the occupancy, every load independent; then, one warp
+//   per x-row of (bx+2xr) * C contiguous slots, cp.async copies of the live
 //   slots' channels, waited for once.  Each x-row's live slots form a
 //   list in slot order (a ballot and a prefix count per 32 slots) of
 //   float4 entries (x, y, z, slot id); the other channels (9 for
 //   branching, 13 for intercalation_w_gradient) stay in slot order.  The
-//   3 cubes of one x-row around a cell are then one contiguous run of
-//   that list.  113 KB at C 8 for branching: two blocks per SM.
+//   2xr + 1 cubes of one x-row around a cell are then one contiguous run
+//   of that list.  113 KB at C 8 for branching: two blocks per SM.
 // * The halo's extras table ([start, end) of each cube's extras) is read
 //   once per block into shared memory; a block whose halo holds no extra
 //   skips them.
@@ -60,10 +67,10 @@
 //   in reach (no branch).  The eight lanes' lists are then joined and
 //   split evenly for the force, and the sums meet by shuffles in a fixed
 //   order.  Empty slots of the brick get their zeros in a coalesced pass.
-// * The extras' own sums run one warp per extra: the lanes load the 27
-//   cubes' extras runs at once, split the 27 x C lattice candidates and
-//   the extras, then reduce with warp shuffles in a fixed order.  Dead
-//   extras exit at once.
+// * The extras' own sums run one warp per extra: the lanes load the
+//   stencil's cubes' extras runs 32 cubes at a time, split those cubes'
+//   lattice candidates and extras, then reduce with warp shuffles in a
+//   fixed order.  Dead extras exit at once.
 //
 // Where it stands (H100 80GB HBM3, 700 W; yalla_tpu_torch/kernel_profile.py):
 // about 0.455 ms per 500k pass and 0.015 ms for the extras kernel, against
@@ -149,8 +156,8 @@ struct Extras {
 
 // Shared-memory bytes of a block for a functor of ``n_chans`` channels
 // (ops/lattice_pallas.py::lattice_plan computes the same sum), with H the
-// halo's cubes, R = hy * hz its x-rows
-// of hx cubes, B the brick's cubes and HC = H * C the halo's slots:
+// halo's cubes, R = hy * hz its x-rows of hx = bx + 2 xr cubes, B the
+// brick's cubes and HC = H * C the halo's slots:
 //   rl     float4 [HC]              each x-row's live slots in slot order,
 //                                   row r from r * hx * C: x y z and the
 //                                   slot's id e, slot (hc, c) being
@@ -169,8 +176,9 @@ struct Extras {
 //                                   joined
 // While the halo is staged, plist and glist hold its occupancy, a byte per
 // slot (launch refuses a halo of more than 4 * kList * kThreads slots).
-long long smem_bytes(const Brick& b, int C, int n_chans) {
-  const long long hx = b.bx + 2, R = (long long)(b.by + 2) * (b.bz + 2);
+long long smem_bytes(const Brick& b, int C, int n_chans, int xr) {
+  const long long hx = b.bx + 2 * xr,
+                  R = (long long)(b.by + 2) * (b.bz + 2);
   const long long H = hx * R;
   const long long B = (long long)b.bz * b.by * b.bx;
   const long long HC = H * C;
@@ -226,18 +234,20 @@ __device__ __forceinline__ void staged_pair(const Force& f,
          ch[(kOv + 2) * HC + e], acc);
 }
 
-template <class Force>
+template <class Force, bool kThin>
 __global__ void __launch_bounds__(kThreads, 2)
 lattice_pair_kernel(const Force f, const Grid g, const Brick br,
                     const Chans<Force> L,
                     const unsigned char* __restrict__ occ,
-                    const Extras<Force> E, float* __restrict__ out) {
+                    const Extras<Force> E, float* __restrict__ out,
+                    const int thin_xr) {
   using Cell = typename Force::Cell;
   constexpr int kChans = Chans<Force>::kChans;
   constexpr int kOut = Force::kSums;
   extern __shared__ float4 smem[];
   const int C = g.C;
-  const int hx = br.bx + 2, hy = br.by + 2, hz = br.bz + 2;
+  const int xr = kThin ? thin_xr : 1;
+  const int hx = br.bx + 2 * xr, hy = br.by + 2, hz = br.bz + 2;
   const int H = hx * hy * hz, HC = H * C, R = hy * hz, RL = hx * C;
   const int B = br.bx * br.by * br.bz;
   float4* rl = smem;
@@ -265,7 +275,7 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
   //    (unused until step 3), all loads independent
   unsigned char* occ_s = (unsigned char*)(plist - threadIdx.x);
   for (int i = threadIdx.x; i < HC; i += kThreads) {
-    const int r = i / RL, xs = (x0 - 1) * C + i - r * RL;
+    const int r = i / RL, xs = (x0 - xr) * C + i - r * RL;
     const int y = y0 + r % hy - 1, z = z0 + r / hy - 1;
     occ_s[i] = y >= 0 && y < g.gy && z >= 0 && z < g.gz && xs >= 0 &&
                        xs < g.gx * C
@@ -278,7 +288,7 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
   //    of its cubes starts in that list; then the extras runs
   for (int r = warp; r < R; r += kWarps) {
     const int y = y0 + r % hy - 1, z = z0 + r / hy - 1;
-    const int base = ((z * g.gy + y) * g.gx + x0 - 1) * C;
+    const int base = ((z * g.gy + y) * g.gx + x0 - xr) * C;
     int count = 0;
     for (int q0 = 0; q0 < RL; q0 += 32) {
       const int q = q0 + lane, e = r * RL + q;
@@ -302,7 +312,7 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
   }
   int extras_here = 0;
   for (int hc = threadIdx.x; hc < H; hc += kThreads) {
-    const int x = x0 + hc % hx - 1, y = y0 + hc / hx % hy - 1,
+    const int x = x0 + hc % hx - xr, y = y0 + hc / hx % hy - 1,
               z = z0 + hc / (hx * hy) - 1;
     int lo = 0, hi = 0;
     if (E.cap > 0 && x >= 0 && x < g.gx && y >= 0 && y < g.gy && z >= 0 &&
@@ -323,7 +333,7 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
   auto own_cs = [&](int o) {  // own cube o's entry in cs
     const int ox = o % br.bx, oy = o / br.bx % br.by,
               oz = o / (br.bx * br.by);
-    return ((oz + 1) * hy + oy + 1) * (hx + 1) + ox + 1;
+    return ((oz + 1) * hy + oy + 1) * (hx + 1) + ox + xr;
   };
   if (threadIdx.x < 32) {
     const int per = (B + 31) / 32;
@@ -345,7 +355,7 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
   __syncthreads();
   for (int o = threadIdx.x; o < B; o += kThreads) {
     const int first = own_cs(o) / (hx + 1) * RL + cs[own_cs(o)];
-    const int where = (o % br.bx + 1) << 16 | (o / br.bx % br.by + 1) << 21 |
+    const int where = (o % br.bx + xr) << 16 | (o / br.bx % br.by + 1) << 21 |
                       (o / (br.bx * br.by) + 1) << 26;
     for (int k = 0; k < off[o + 1] - off[o]; ++k)
       items[off[o] + k] = first + k | where;
@@ -353,9 +363,10 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
   __syncthreads();
 
   // 3. each live cell's sums.  Its kGroup lanes split each of the 9 rows
-  //    of 3 cubes around it, slot by slot, and list the partners in
-  //    reach (the extras of its 27 cubes are visited in device memory);
-  //    then the lanes' lists are joined and split evenly for the force
+  //    of 2 xr + 1 cubes around it, slot by slot, and list the partners
+  //    in reach (the extras of its stencil's cubes are visited in device
+  //    memory); then the lanes' lists are joined and split evenly for the
+  //    force
   const int W = off[B];
   for (int w0 = 0; w0 < W; w0 += kThreads / kGroup) {
     const int w = w0 + threadIdx.x / kGroup;
@@ -376,8 +387,8 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
       for (int k = 0; k < 9; ++k) {
         const int r = r_me + (k / 3 - 1) * hy + k % 3 - 1;
         const int* c = cs + r * (hx + 1) + xh;
-        const int hi = r * RL + c[2];
-        for (int idx = r * RL + c[-1] + u; idx < hi; idx += kGroup) {
+        const int hi = r * RL + c[xr + 1];
+        for (int idx = r * RL + c[-xr] + u; idx < hi; idx += kGroup) {
           // listed always, kept if in reach (itself included: it is
           // skipped in the force, one test per partner, not per candidate)
           const float4 b = rl[idx];
@@ -391,9 +402,10 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
         }
       }
       if (halo_extras) {
-        for (int nb = u; nb < 27; nb += kGroup) {
-          const int nh = hc + (nb / 9 - 1) * hy * hx +
-                         (nb / 3 % 3 - 1) * hx + nb % 3 - 1;
+        const int nx = 2 * xr + 1;
+        for (int nb = u; nb < 9 * nx; nb += kGroup) {
+          const int nh = hc + (nb / (3 * nx) - 1) * hy * hx +
+                         (nb / nx % 3 - 1) * hx + nb % nx - xr;
           for (int k2 = es[nh]; k2 < ee[nh]; ++k2)
             visit(f, a, E.ch, E.order[k2], g.cutoff, acc);
         }
@@ -419,7 +431,7 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
     if (w < W) {  // lane u writes sums u and u + kGroup
       const int c = e_me - ((zh * hy + yh) * hx + xh) * C;
       const long long s = ((long long)((z0 + zh - 1) * g.gy + y0 + yh - 1) *
-                               g.gx + x0 + xh - 1) * C + c;
+                               g.gx + x0 + xh - xr) * C + c;
 #pragma unroll
       for (int m = 0; m < kOut; ++m)
         if (m % kGroup == u) out[m * n_slots + s] = acc[m];
@@ -441,11 +453,12 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
   }
 }
 
-template <class Force>
+template <class Force, bool kThin>
 __global__ void __launch_bounds__(kExtrasThreads)
 extras_pair_kernel(const Force f, const Grid g, const Chans<Force> L,
                    const unsigned char* __restrict__ occ,
-                   const Extras<Force> E, float* __restrict__ out) {
+                   const Extras<Force> E, float* __restrict__ out,
+                   const int thin_xr) {
   using Cell = typename Force::Cell;
   constexpr int kOut = Force::kSums;
   static_assert(kOut <= 32, "a lane zeroes each sum of a dead extra");
@@ -464,35 +477,40 @@ extras_pair_kernel(const Force f, const Grid g, const Chans<Force> L,
   for (int m = 0; m < kOut; ++m) acc[m] = 0.0f;
   const int cx = cube % g.gx, cy = cube / g.gx % g.gy,
             cz = cube / (g.gx * g.gy);
-  // lane nb < 27: neighbour cube nb (-1 outside the grid) and its run of
-  // extras, loaded at once rather than one cube after another
-  int nc = -1, lo = 0, hi = 0;
-  if (lane < 27) {
-    const int x = cx + lane % 3 - 1, y = cy + lane / 3 % 3 - 1,
-              z = cz + lane / 9 - 1;
-    if (x >= 0 && x < g.gx && y >= 0 && y < g.gy && z >= 0 && z < g.gz) {
-      nc = (z * g.gy + y) * g.gx + x;
-      lo = E.start[nc];
-      hi = E.start[nc + 1];
+  const int xr = kThin ? thin_xr : 1, nx = 2 * xr + 1, n_nb = 9 * nx;
+  // the stencil's cubes 32 at a time (27 at xr 1, 45 at xr 2): lane k
+  // loads cube nb0 + k (-1 outside the grid) and its run of extras, at
+  // once rather than one cube after another
+  for (int nb0 = 0; nb0 < n_nb; nb0 += 32) {
+    const int nb = nb0 + lane, m = min(32, n_nb - nb0);
+    int nc = -1, lo = 0, hi = 0;
+    if (lane < m) {
+      const int x = cx + nb % nx - xr, y = cy + nb / nx % 3 - 1,
+                z = cz + nb / (3 * nx) - 1;
+      if (x >= 0 && x < g.gx && y >= 0 && y < g.gy && z >= 0 && z < g.gz) {
+        nc = (z * g.gy + y) * g.gx + x;
+        lo = E.start[nc];
+        hi = E.start[nc + 1];
+      }
     }
-  }
-  for (int t0 = 0; t0 < 27 * g.C; t0 += 32) {
-    const int t = t0 + lane, nb = min(t / g.C, 26);
-    const int c3 = __shfl_sync(0xffffffffu, nc, nb);
-    if (t < 27 * g.C && c3 >= 0) {
-      const int j = c3 * g.C + t - nb * g.C;
-      if (occ[j]) visit(f, a, L, j, g.cutoff, acc);
+    for (int t0 = 0; t0 < m * g.C; t0 += 32) {
+      const int t = t0 + lane, k = min(t / g.C, m - 1);
+      const int c3 = __shfl_sync(0xffffffffu, nc, k);
+      if (t < m * g.C && c3 >= 0) {
+        const int j = c3 * g.C + t - k * g.C;
+        if (occ[j]) visit(f, a, L, j, g.cutoff, acc);
+      }
     }
-  }
-  for (int nb = 0; nb < 27; ++nb) {
-    const int k0 = __shfl_sync(0xffffffffu, lo, nb),
-              k1 = __shfl_sync(0xffffffffu, hi, nb);
-    for (int k = k0 + lane; k < k1; k += 32) {
-      const int e2 = E.order[k];
-      if (e2 == e)
-        f.self_pair(a, acc);
-      else
-        visit(f, a, E.ch, e2, g.cutoff, acc);
+    for (int k = 0; k < m; ++k) {
+      const int k0 = __shfl_sync(0xffffffffu, lo, k),
+                k1 = __shfl_sync(0xffffffffu, hi, k);
+      for (int q = k0 + lane; q < k1; q += 32) {
+        const int e2 = E.order[q];
+        if (e2 == e)
+          f.self_pair(a, acc);
+        else
+          visit(f, a, E.ch, e2, g.cutoff, acc);
+      }
     }
   }
 #pragma unroll
@@ -507,20 +525,21 @@ extras_pair_kernel(const Force f, const Grid g, const Chans<Force> L,
   }
 }
 
-template <class Force>
-int launch(const Force& f, const Grid& g, const Brick& br, long long smem,
-           const Chans<Force>& L, const unsigned char* occ,
+template <class Force, bool kThin>
+int launch(const Force& f, const Grid& g, int xr, const Brick& br,
+           long long smem, const Chans<Force>& L, const unsigned char* occ,
            const Extras<Force>& E, float* out, float* eout,
            cudaStream_t stream) {
   const long long n_slots = (long long)g.gx * g.gy * g.gz * g.C;
-  const long long HC = (long long)(br.bx + 2) * (br.by + 2) * (br.bz + 2) *
-                       g.C;
-  // places in rl are 16-bit, a cube's halo coordinates 5 bits, and the
-  // halo's occupancy is staged in the partner lists' room
-  if (g.gx < 1 || g.gy < 1 || g.gz < 1 || g.C < 1 || br.bx < 1 ||
-      br.by < 1 || br.bz < 1 || n_slots >= (1LL << 31) || HC > 65535 ||
-      HC > 4 * kList * kThreads || br.bx > 30 || br.by > 30 ||
-      br.bz > 30 || smem < smem_bytes(br, g.C, Chans<Force>::kChans) ||
+  const long long HC = (long long)(br.bx + 2 * xr) * (br.by + 2) *
+                       (br.bz + 2) * g.C;
+  // places in rl are 16-bit, a cube's halo coordinates 5 bits (x, y) and
+  // 6 (z), and the halo's occupancy is staged in the partner lists' room
+  if (g.gx < 1 || g.gy < 1 || g.gz < 1 || g.C < 1 || xr < 1 ||
+      (xr > 1) != kThin || br.bx < 1 || br.by < 1 || br.bz < 1 ||
+      n_slots >= (1LL << 31) || HC > 65535 || HC > 4 * kList * kThreads ||
+      br.bx + 2 * xr > 32 || br.by > 30 || br.bz > 30 ||
+      smem < smem_bytes(br, g.C, Chans<Force>::kChans, xr) ||
       smem > 232448)
     return (int)cudaErrorInvalidValue;
   // above the default 48 KB a kernel takes dynamic shared memory only by
@@ -530,7 +549,7 @@ int launch(const Force& f, const Grid& g, const Brick& br, long long smem,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices || smem > opted[dev]) {
-    err = cudaFuncSetAttribute(lattice_pair_kernel<Force>,
+    err = cudaFuncSetAttribute(lattice_pair_kernel<Force, kThin>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -539,11 +558,13 @@ int launch(const Force& f, const Grid& g, const Brick& br, long long smem,
   const int blocks = ((g.gx + br.bx - 1) / br.bx) *
                      ((g.gy + br.by - 1) / br.by) *
                      ((g.gz + br.bz - 1) / br.bz);
-  lattice_pair_kernel<<<blocks, kThreads, (size_t)smem, stream>>>(
-      f, g, br, L, occ, E, out);
+  lattice_pair_kernel<Force, kThin><<<blocks, kThreads, (size_t)smem,
+                                      stream>>>(f, g, br, L, occ, E, out,
+                                                xr);
   if (E.cap > 0)
-    extras_pair_kernel<<<(E.cap * 32 + kExtrasThreads - 1) / kExtrasThreads,
-                         kExtrasThreads, 0, stream>>>(f, g, L, occ, E, eout);
+    extras_pair_kernel<Force, kThin>
+        <<<(E.cap * 32 + kExtrasThreads - 1) / kExtrasThreads,
+           kExtrasThreads, 0, stream>>>(f, g, L, occ, E, eout, xr);
   return (int)cudaGetLastError();
 }
 
@@ -562,35 +583,40 @@ int launch_entry(const Force& f, const void* const* chans,
                  const unsigned char* occ, const void* const* echans,
                  const int* ecube, const int* eorder, const int* estart,
                  int E_cap, int gx, int gy, int gz, int C, float cube_size,
-                 int bz, int by, int bx, long long smem, float* out,
+                 int xr, int bz, int by, int bx, long long smem, float* out,
                  float* eout, cudaStream_t stream) {
   const Grid g{gx, gy, gz, C, cube_size, reach2_of(cube_size)};
   const Brick br{bz, by, bx};
   const Extras<Force> E{chans_of<Force>(echans), ecube, eorder, estart,
                         E_cap};
-  return launch(f, g, br, smem, chans_of<Force>(chans), occ, E, out, eout,
-                stream);
+  const Chans<Force> L = chans_of<Force>(chans);
+  return xr == 1
+             ? launch<Force, false>(f, g, xr, br, smem, L, occ, E, out, eout,
+                                    stream)
+             : launch<Force, true>(f, g, xr, br, smem, L, occ, E, out, eout,
+                                   stream);
 }
 
 }  // namespace
 
 // One entry point per functor.  chans / echans: host arrays of the
-// functor's kFields + 3 device pointers (lattice slots and extras); bz,
-// by, bx, smem: the brick and shared-memory bytes of
-// ops/lattice_pallas.py::lattice_plan; params: host array of the
-// functor's parameter values (ops/functors.py, ``params``).
+// functor's kFields + 3 device pointers (lattice slots and extras); xr:
+// the x reach in cubes (1, or x_split); bz, by, bx, smem: the brick and
+// shared-memory bytes of ops/lattice_pallas.py::lattice_plan; params:
+// host array of the functor's parameter values (ops/functors.py,
+// ``params``).
 #define YALLA_LATTICE_ENTRY(NAME, FORCE, SET_PARAMS)                        \
   extern "C" int NAME(                                                     \
       const void* const* chans, const unsigned char* occ,                  \
       const void* const* echans, const int* ecube, const int* eorder,      \
       const int* estart, int E_cap, int gx, int gy, int gz, int C,         \
-      float cube_size, int bz, int by, int bx, long long smem,             \
+      float cube_size, int xr, int bz, int by, int bx, long long smem,     \
       const float* params, float* out, float* eout, cudaStream_t stream) { \
     FORCE f;                                                               \
     SET_PARAMS;                                                            \
     return launch_entry(f, chans, occ, echans, ecube, eorder, estart,      \
-                        E_cap, gx, gy, gz, C, cube_size, bz, by, bx, smem, \
-                        out, eout, stream);                                \
+                        E_cap, gx, gy, gz, C, cube_size, xr, bz, by, bx,   \
+                        smem, out, eout, stream);                          \
   }
 
 // the 10 BranchingParams values

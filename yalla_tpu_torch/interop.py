@@ -83,30 +83,33 @@ def bench_engine(cfg):
     central or tile kernel; the caller gives ``Solution`` the benchmark's
     row count, ``cfg["n_pad"]``.  Otherwise a LatticeEngine: its grid,
     capacity and cube size, overflow extras sized as the benchmark sizes
-    them, the kernel path, and the per-pass rebuild cadence."""
+    them, the kernel path, the rebuild cadence and the thin x-cubes
+    (``x_split``) where the entry has them.  A slot-space rebin cadence
+    (``rebin``) is an argument of ``lattice_heun_steps``, not of the
+    engine, and is refused here."""
     tile = {"tile_central_mxu": TileEngine(mxu=True),
             "tile_pallas": TileEngine(pallas=True)}
     if cfg.get("engine") in tile:
         return tile[cfg["engine"]]
-    if cfg.get("rebin") or cfg.get("x_split", 1) != 1:
+    if cfg.get("rebin"):
         raise ValueError(f"unsupported benchmark cadence: {cfg}")
     e_b = int(cfg["extras_block_cap"])
     return LatticeEngine(
         grid_size=tuple(cfg["gs"]), capacity=int(cfg["C"]),
         z_block=BENCH_Z_BLOCK, rebuild_every=int(cfg["rebuild_every"]),
         pallas=True, extras_cap=BENCH_EXTRAS_CAP if e_b else 0,
-        extras_block_cap=max(e_b, 8))
+        extras_block_cap=max(e_b, 8), x_split=int(cfg.get("x_split", 1)))
 
 
 def engine_from(engine):
     """The port's ``TileEngine`` / ``GridEngine`` / ``GabrielEngine`` /
     ``LatticeEngine`` with the settings of a JAX engine of the same name
     (a frozen dataclass).  Settings the port has no counterpart for (the
-    TPU windows of JAX's windowed Gabriel form, the lattice's staleness
-    radius) are left behind.  A JAX ``LatticeEngine(pallas=False)``
-    ignores its ``extras_cap``, and the port's lattice engine always
-    honours it, so it maps to ``extras_cap=0``; its unported options
-    (``x_split``, ``route_movers``) are refused."""
+    TPU windows of JAX's windowed Gabriel form) are left behind.  A JAX
+    ``LatticeEngine(pallas=False)`` ignores its ``extras_cap``, and the
+    port's lattice engine always honours it, so it maps to
+    ``extras_cap=0``; every other lattice setting (``x_split``,
+    ``route_movers``, ``force_r_max``, the cadence) carries across."""
     port = {"TileEngine": TileEngine, "GridEngine": GridEngine,
             "GabrielEngine": GabrielEngine, "LatticeEngine": LatticeEngine}
     name = type(engine).__name__
@@ -115,9 +118,6 @@ def engine_from(engine):
     keep = {f.name for f in dataclasses.fields(port[name])}
     settings = dataclasses.asdict(engine)
     if name == "LatticeEngine":
-        if settings["x_split"] != 1 or settings["route_movers"]:
-            raise ValueError(f"engine_from: unported lattice options in "
-                             f"{engine}")
         if not settings["pallas"]:
             settings.update(pallas=True, extras_cap=0)
     return port[name](**{k: v for k, v in settings.items() if k in keep})

@@ -32,6 +32,14 @@ one JSON line:
   window, over its steps), the device kernels launched, and the wall ms
   of each of ``WALL_WINDOWS`` unprofiled windows.
 
+    python3 yalla_tpu_torch/kernel_profile.py --k1-xsplit [ROOT ...]
+
+prints instead, per ROOT, one JSON line of ``k1_xsplit``: device ms per
+pass of each K1 kernel on the thin x-cubes of the settled 500k state
+(``THIN_500K``: grid 128 x 64 x 64 of half-width x-cubes, C 5, the build
+of ``chip_smoke.py`` phase 27), null in a tree whose K1 has no thin
+cubes; with two trees in alternation, the verdict line as below.
+
 Every device time is the mean of ``DEVICE_WINDOWS`` profiled windows; the
 windows' own values of the entry's metric stand beside it (``windows_ms``:
 the named kernels' sum for ``k1``, ``k3`` and ``k4``, else ``busy_ms``).
@@ -72,6 +80,9 @@ K3_KERNELS = ("tile_pair_kernel", "tile_reduce_kernel")
 K4_KERNELS = ("central_pair_kernel", "central_reduce_kernel")
 WALL_WINDOWS = 5
 DEVICE_WINDOWS = 3
+# profiler windows a device time may take (a chip_smoke.py run on an
+# H100 saw four in a row come back without device events)
+WINDOW_TRIES = 8
 # The 100k growth_w_wall slice's engine.  benchmarks/
 # bench_gabriel_lattice.py:43-58 at 100k cells has grid 48, C 8 and NC 20,
 # certified there with dead links.  Live protrusions contract the tissue:
@@ -79,6 +90,11 @@ DEVICE_WINDOWS = 3
 # fills to 9 by step 23, so the slice takes C 16 (the grid stays 48) and
 # NC 32.
 GABRIEL_100K = dict(grid_size=48, capacity=16, max_candidates=32)
+# Thin x-cubes on the settled 500k state (x_split 2: x binned at half the
+# cube size, 128 of them across): the fullest half-cube holds 7, so C 5
+# spills 136 cells into a 2048-entry extras list
+THIN_500K = dict(grid_size=(128, 64, 64), capacity=5, z_block=2,
+                 extras_cap=2048, extras_block_cap=24, x_split=2)
 
 
 def card():
@@ -96,14 +112,17 @@ def device_window(fn, calls):
     events count: a host op's row carries the device time of the kernels
     it launched, which their own rows already hold, and CUPTI's buffer
     requests are the profiler's.  A window whose device events did not
-    arrive (CUPTI drops one now and then) is taken again, twice at most;
-    raises if the profiler still shows no device time."""
+    arrive (CUPTI drops one now and then, at times several in a row) is
+    taken again after a pause, ``WINDOW_TRIES`` windows in all; raises if
+    the profiler still shows no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(WINDOW_TRIES):
+        if attempt:
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -347,6 +366,40 @@ def _one(root):
     return out
 
 
+def _k1_xsplit(root):
+    """Device ms of K1 on the thin x-cubes of the 500k state, as a dict
+    (``k1_xsplit`` None where the tree's K1 has no ``x_split``)."""
+    import inspect
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+    from yalla_tpu_torch import _build
+    from yalla_tpu_torch.interop import load_settled
+    from yalla_tpu_torch.models import branching as B
+    from yalla_tpu_torch.ops.common import friction_w_neighbour
+    from yalla_tpu_torch.ops.lattice_pallas import lattice_pairwise_pallas
+    from yalla_tpu_torch.ops.lattice_xla import lattice_build
+    from yalla_tpu_torch.solvers import augment
+    _build.library()
+    out = {"root": str(root), "card": card(), "k1_xsplit": None}
+    if "x_split" not in inspect.signature(lattice_pairwise_pallas).parameters:
+        return out
+    e = THIN_500K
+    X, ov = load_settled(root / ".bench_cache" /
+                         "settled_branching_500000_s0_v1.npz", B.Cell,
+                         torch.device("cuda"))
+    lay = lattice_build(X, ov, 500_000, 1.0, e["grid_size"], e["capacity"],
+                        e["extras_cap"], x_split=e["x_split"])
+    lay = lay._replace(T=augment(lay.T, 500_000, B.precompute),
+                       E=augment(lay.E, 500_000, B.precompute))
+    out["k1_xsplit"] = _device_windows(lambda: lattice_pairwise_pallas(
+        B.make_force(B.Params()), friction_w_neighbour, lay, 500_000, 1.0,
+        grid_size=e["grid_size"], capacity=e["capacity"],
+        z_block=e["z_block"], extras_block_cap=e["extras_block_cap"],
+        x_split=e["x_split"]), 10, K1_KERNELS, True)
+    return out
+
+
 def _plans(root):
     """Device ms of K2, K4 and K5 at other launch plans than their own."""
     root = Path(root).resolve()
@@ -417,7 +470,9 @@ def _metrics(run):
     """{metric: list of values} of one run: the windows of each."""
     steps = [t for t in ("500k", "5k_tile", "5k_central", "100k", "iwg")
              if f"step_{t}" in run]
-    return {**{f"k{i}_ms": run[f"k{i}"]["windows_ms"] for i in range(1, 6)},
+    kernels = [k for k in ("k1", "k2", "k3", "k4", "k5", "k1_xsplit")
+               if run.get(k)]
+    return {**{f"{k}_ms": run[k]["windows_ms"] for k in kernels},
             **{f"busy_{t}_ms": run[f"step_{t}"]["windows_ms"] for t in steps},
             **{f"wall_{t}_ms": run[f"step_{t}"]["wall_ms"] for t in steps}}
 
@@ -444,16 +499,20 @@ def main(argv):
         print(json.dumps(_plans(argv[1] if len(argv) > 1 else
                                 Path(__file__).resolve().parent.parent)))
         return
-    if len(argv) >= 2 and argv[0] == "--one":
+    if len(argv) >= 2 and argv[0] in ("--one", "--one-k1-xsplit"):
         import torch
         if not torch.cuda.is_available():
             raise SystemExit("kernel_profile: no CUDA device")
-        print(json.dumps(_one(argv[1])))
+        one = _one if argv[0] == "--one" else _k1_xsplit
+        print(json.dumps(one(argv[1])))
         return
+    mode = "--one"
+    if argv[:1] == ["--k1-xsplit"]:
+        mode, argv = "--one-k1-xsplit", argv[1:]
     roots = argv or [str(Path(__file__).resolve().parent.parent)]
     runs = []
     for root in roots:
-        line = subprocess.run([sys.executable, __file__, "--one", root],
+        line = subprocess.run([sys.executable, __file__, mode, root],
                               check=True, stdout=subprocess.PIPE,
                               text=True).stdout.strip().splitlines()[-1]
         print(line, flush=True)

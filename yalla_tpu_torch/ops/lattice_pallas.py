@@ -11,10 +11,15 @@ in extras order when the layout carries overflow extras (with the scalar
   The kernel runs forces that declare a device functor
   (``ops/functors.py``: ``branching``, ``intercalation_w_gradient``) and
   refuses the rest on the GPU; :func:`lattice_plan` sizes its bricks of
-  cubes and their shared memory from the functor's channel count.
+  cubes and their shared memory from the functor's channel count and the
+  x reach.
 * ``lattice_pairwise_plain`` is generic over any torch force: the
   stencil lattice pass of ``lattice_xla`` plus an extras pass built on
   ``evaluate_pairs``.
+
+Thin x-cubes (``x_split = k > 1``, the JAX package's option): x is binned
+at ``cube_size / k``, ``gx`` counts the thin cubes, and every pass reaches
++-k cubes in x (+-1 in y and z); the cutoff stays ``cube_size``.
 """
 from __future__ import annotations
 
@@ -61,15 +66,16 @@ class LatticePlan(NamedTuple):
     blocks: int
 
 
-def lattice_smem_bytes(brick, capacity, n_chans):
+def lattice_smem_bytes(brick, capacity, n_chans, x_split=1):
     """Shared-memory bytes of one block of a functor of ``n_chans``
     channels (``csrc/lattice_pair.cu`` ``smem_bytes``): for each halo slot
     a list entry of x, y, z and its id (16 bytes) and its other
     ``n_chans - 3`` channels, the live count before each cube of each halo
     x-row, two ints per halo cube, the work list, and two 16-bit lists of
-    partners in reach per lane."""
+    partners in reach per lane.  The halo reaches ``x_split`` cubes on
+    each side in x, one in y and z."""
     bz, by, bx = brick
-    hx, rows = bx + 2, (by + 2) * (bz + 2)
+    hx, rows = bx + 2 * x_split, (by + 2) * (bz + 2)
     H = hx * rows
     B = bz * by * bx
     HC = H * capacity
@@ -78,21 +84,36 @@ def lattice_smem_bytes(brick, capacity, n_chans):
         4 * LATTICE_LIST * LATTICE_THREADS
 
 
+def _halo_fits(brick, capacity, x_split):
+    """The kernel's limits on a halo: its x extent in 5 bits, its slots in
+    16-bit places and, a byte each, in the partner lists' room."""
+    bz, by, bx = brick
+    HC = (bx + 2 * x_split) * (by + 2) * (bz + 2) * capacity
+    return bx + 2 * x_split <= 32 and \
+        HC <= min(65535, 4 * LATTICE_LIST * LATTICE_THREADS)
+
+
 @functools.lru_cache(maxsize=64)
-def lattice_plan(grid_size, capacity, n_chans):
+def lattice_plan(grid_size, capacity, n_chans, x_split=1):
     """The brick, halo, shared memory and blocks of the lattice pair kernel
     on a ``grid_size`` grid of ``capacity`` slots per cube, for a functor
-    of ``n_chans`` channels.  Bricks are clipped to the grid; raises if not
-    even one cube and its halo fit the card's shared memory."""
+    of ``n_chans`` channels and an x reach of ``x_split`` cubes.  Bricks
+    are clipped to the grid; raises if not even one cube and its halo fit
+    the card's shared memory and the kernel's limits."""
     gx, gy, gz = grid_dims(grid_size)
     C = int(capacity)
     if C < 1 or min(gx, gy, gz) < 1 or gx * gy * gz * C >= 2 ** 31 \
-            or n_chans < 3:
+            or n_chans < 3 or x_split < 1:
         raise ValueError(f"lattice_plan: grid {(gx, gy, gz)}, capacity {C}, "
-                         f"{n_chans} channels")
-    for bz, by, bx in BRICKS:
-        brick = (min(bz, gz), min(by, gy), min(bx, gx))
-        smem = lattice_smem_bytes(brick, C, n_chans)
+                         f"{n_chans} channels, x_split {x_split}")
+    fitting = [b for b in ((min(bz, gz), min(by, gy), min(bx, gx))
+                           for bz, by, bx in BRICKS)
+               if _halo_fits(b, C, x_split)]
+    if not fitting:
+        raise ValueError(f"lattice_plan: x_split {x_split} at capacity {C}: "
+                         f"no brick's halo fits the kernel's limits")
+    for brick in fitting:
+        smem = lattice_smem_bytes(brick, C, n_chans, x_split)
         if smem <= SMEM_BUDGET:
             break
     if smem > SMEM_MAX:
@@ -127,7 +148,8 @@ def extras_block_overflow(layout, cube_size, grid_size, z_block,
     per block (``lattice_pallas._extras_tables``).  This counts the table
     entries past that cap, so both packages raise on the same states.
     Where the JAX kernel refuses the grid (an extent its blocks do not
-    divide) the last block of the axis is ragged."""
+    divide) the last block of the axis is ragged.  The blocks span whole
+    x rows, so thin x-cubes do not change the count."""
     gx, gy, gz = grid_dims(grid_size)
     zb, yb = z_block, _y_block(gy)
     nz, ny = -(-gz // zb), -(-gy // yb)
@@ -161,17 +183,17 @@ def extras_block_overflow(layout, cube_size, grid_size, z_block,
 
 def lattice_pairwise_plain(pw_int, pw_friction, layout, n, cube_size, *,
                            grid_size, capacity, z_block,
-                           extras_block_cap=16):
+                           extras_block_cap=16, x_split=1):
     """Plain torch version of the pair pass, generic over the force.
 
     The lattice-lattice sums are ``lattice_pairwise_resident``'s; with
-    overflow extras, each extra's 27-cube stencil of lattice slots is
-    evaluated both ways (the lattice sides scatter-added into the slot
-    sums) and the extras pair all-against-all, diagonal included, as in
-    the JAX kernel's merge."""
+    overflow extras, each extra's stencil of lattice slots (+-1 cube in z
+    and y, +-``x_split`` in x) is evaluated both ways (the lattice sides
+    scatter-added into the slot sums) and the extras pair all-against-all,
+    diagonal included, as in the JAX kernel's merge."""
     F, sum_f, sum_v, aux = lattice_pairwise_resident(
         pw_int, pw_friction, layout, n, cube_size, grid_size=grid_size,
-        capacity=capacity)
+        capacity=capacity, x_split=x_split)
     if layout.E is None:
         return F, sum_f, sum_v, aux
 
@@ -180,10 +202,10 @@ def lattice_pairwise_plain(pw_int, pw_friction, layout, n, cube_size, *,
     E, T = layout.E, layout.T
     gx, gy, gz = grid_dims(grid_size)
     live = layout.epid < n_pad
-    slots, ok = stencil_slots(cube_coord(E.x, cube_size, gx),
+    slots, ok = stencil_slots(cube_coord(E.x, cube_size / x_split, gx),
                               cube_coord(E.y, cube_size, gy),
                               cube_coord(E.z, cube_size, gz), grid_size,
-                              capacity)
+                              capacity, x_split)
     valid = ok & (layout.pid[slots] < n_pad) & live[:, None]
     Xe = type(E)(*(a[:, None] for a in E))
     XL = type(T)(*(a[slots] for a in T))
@@ -230,18 +252,19 @@ def _force_spec(pw_int, pw_friction):
 
 def lattice_pairwise_pallas(pw_int, pw_friction, layout, n, cube_size, *,
                             grid_size, capacity, z_block,
-                            extras_block_cap=16):
+                            extras_block_cap=16, x_split=1):
     """Lattice pair-pass wrapper: launches ``csrc/lattice_pair.cu`` for
     CUDA tensors, runs :func:`lattice_pairwise_plain` for CPU tensors,
     raises for anything else.  ``lattice_pairwise_pallas.launches`` counts
     kernel launches.  ``z_block`` is the JAX kernel's block height, which
-    sets the blocks of ``__err_extras_block``."""
+    sets the blocks of ``__err_extras_block``; ``x_split`` the thin
+    x-cubes' reach."""
     dev = layout.pid.device
     if dev.type == "cpu":
         return lattice_pairwise_plain(
             pw_int, pw_friction, layout, n, cube_size, grid_size=grid_size,
             capacity=capacity, z_block=z_block,
-            extras_block_cap=extras_block_cap)
+            extras_block_cap=extras_block_cap, x_split=x_split)
     if dev.type != "cuda":
         raise ValueError(f"lattice pair kernel: unsupported device {dev}")
     from .. import _build
@@ -268,7 +291,8 @@ def lattice_pairwise_pallas(pw_int, pw_friction, layout, n, cube_size, *,
         E_cap = layout.epid.shape[0]
         echans = channels(layout.E, layout.Eov, E_cap, "E")
         ecube = torch.where(layout.epid < n_pad,
-                            cube_ids(layout.E, E_cap, cube_size, grid_size),
+                            cube_ids(layout.E, E_cap, cube_size, grid_size,
+                                     x_split),
                             n_cubes)
         ecube_sorted, eorder = torch.sort(ecube)
         estart = torch.searchsorted(
@@ -282,12 +306,12 @@ def lattice_pairwise_pallas(pw_int, pw_friction, layout, n, cube_size, *,
     else:
         eout = None
         e_args = (None, None, None, None, 0)
-    plan = lattice_plan((gx, gy, gz), C, len(chans))
+    plan = lattice_plan((gx, gy, gz), C, len(chans), int(x_split))
     lib = _build.library()
     lattice_pairwise_pallas.launches += 1
     _build.check(getattr(lib, spec["entries"]["lattice"])(
         _build.pointers(chans), occ.data_ptr(), *e_args, gx, gy, gz, C,
-        float(cube_size), *plan.brick, plan.smem,
+        float(cube_size), int(x_split), *plan.brick, plan.smem,
         param_array(spec, params), out.data_ptr(),
         eout.data_ptr() if has_e else None, _build.stream_handle(dev)),
         "lattice pair kernel")

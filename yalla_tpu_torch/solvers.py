@@ -10,11 +10,11 @@ Ported: the all-pairs ``TileEngine`` (the plain brute-force oracle and
 the all-pairs kernels K3 and K4), the spatial-hash ``GridEngine``, the
 ``GabrielEngine`` (the gather form, and the Gabriel lattice kernel K5),
 generic forces (``GenericForce``, ``gen_forces=``), the ``LatticeEngine``
-at the per-pass rebuild cadence (``LatticeEngine.pairwise`` for
-``heun_step``, and ``ops.lattice_xla.lattice_heun_steps``, which
-``take_steps`` runs when there is no generic force), ``solver="auto"``,
-the switch of ``solver="grid"`` to the lattice above 20k points, and
-``Solution.validate``.
+with every cadence, thin x-cubes and mover routing
+(``LatticeEngine.pairwise`` for ``heun_step``, and
+``ops.lattice_xla.lattice_heun_steps``, which ``take_steps`` runs),
+``solver="auto"``, the switch of ``solver="grid"`` to the lattice above
+20k points, and ``Solution.validate``.
 """
 from __future__ import annotations
 
@@ -163,17 +163,31 @@ class LatticeEngine:
     engine's default ``pallas=False`` ignores ``extras_cap``.  The
     counterpart of a JAX ``LatticeEngine(pallas=False)`` is this engine
     with ``extras_cap=0`` (``interop.engine_from`` maps it so), and then
-    both packages raise the same flags on the same states.  Only the
-    per-pass rebuild cadence (``rebuild_every=1``) is ported; the
-    integrator refuses the rest.  ``z_block`` is the JAX kernel's z-block
-    height, which sets the blocks of ``__err_extras_block``."""
+    both packages raise the same flags on the same states.  ``z_block`` is
+    the JAX kernel's z-block height, which sets the blocks of
+    ``__err_extras_block``.
+
+    As in the JAX engine: ``rebuild_every`` is the binning's cadence (1:
+    a fresh binning before every pass, the reference's); ``force_r_max``
+    (the force's interaction radius) makes a resident cadence certify
+    itself (``__err_stale`` where the cells' motion could hide a pair
+    within the margin ``cube_size - force_r_max``); ``route_movers`` (> 0,
+    with extras and a resident cadence) sends the cells whose
+    extrapolated chunk displacement could eat half that margin into the
+    extras list; ``x_split`` bins x at ``cube_size / x_split`` (thin
+    x-cubes, of which ``grid_size``'s x counts; a pass reaches
+    ``x_split`` of them on each side), which needs ``rebuild_every``
+    1."""
     grid_size: int | tuple = 64
     capacity: int = 8
     z_block: int = 4
     rebuild_every: int = 1
     pallas: bool = True
+    force_r_max: float | None = None
     extras_cap: int = 0
     extras_block_cap: int = 16
+    route_movers: float = 0.0
+    x_split: int = 1
 
     def __post_init__(self):
         # z_block must divide the grid's z extent (the JAX kernel's blocks)
@@ -194,11 +208,12 @@ class LatticeEngine:
         from .ops.lattice_xla import (_merge_extras, lattice_build,
                                       slot_to_stable)
         lay = lattice_build(X, old_v, n, cube_size, self.grid_size,
-                            self.capacity, self.extras_cap)
+                            self.capacity, self.extras_cap,
+                            x_split=self.x_split)
         outs = lattice_pairwise_pallas(
             pw_int, pw_friction, lay, n, cube_size, grid_size=self.grid_size,
             capacity=self.capacity, z_block=self.z_block,
-            extras_block_cap=self.extras_block_cap)
+            extras_block_cap=self.extras_block_cap, x_split=self.x_split)
         F, sum_f, sum_v, aux = (slot_to_stable(lay, t) for t in outs[:4])
         if self.extras_cap:
             Fe, sum_fe, sum_ve, aux_e = outs[4]
@@ -528,28 +543,42 @@ class Solution:
     def take_steps(self, n_steps, dt, pw_int, *,
                    pw_friction=friction_w_neighbour, gen_forces=None,
                    precompute=None, check_errors=True):
-        """``n_steps`` Heun steps.  With a LatticeEngine and no generic
-        force this runs the lattice integrator (per-pass rebuild, the
-        derivative kept in slot order); with generic forces, or any other
-        engine, :func:`heun_steps` on ``engine.pairwise`` (the same step:
-        the lattice engine's ``pairwise`` rebuilds per pass too).
-        ``gen_forces`` is a ``GenericForce`` or a plain ``fn(X, n)``."""
+        """``n_steps`` Heun steps.  With a LatticeEngine this runs the
+        lattice integrator (the derivative kept in slot order) at the
+        engine's cadence: every ``k`` steps a fresh binning, ``k`` the
+        largest divisor of ``n_steps`` not above ``rebuild_every`` (with a
+        warning where it is smaller), generic forces inside its slot loop;
+        at ``rebuild_every`` 1 a generic force runs instead through
+        :func:`heun_steps` on ``engine.pairwise`` (the same step: the
+        lattice engine's ``pairwise`` rebuilds per pass too).  Any other
+        engine runs :func:`heun_steps`.  ``gen_forces`` is a
+        ``GenericForce`` or a plain ``fn(X, n)``."""
         self._ensure_device()
         e = self.engine
         gen = _as_generic(gen_forces)
-        if isinstance(e, LatticeEngine) and gen is not None \
-                and e.rebuild_every != 1:
-            raise NotImplementedError(
-                "generic forces on the lattice run at the per-pass rebuild "
-                "cadence only (rebuild_every=1)")
-        if isinstance(e, LatticeEngine) and gen is None:
+        n_steps = int(n_steps)
+        if isinstance(e, LatticeEngine) and (gen is None
+                                             or e.rebuild_every != 1):
             from .ops.lattice_xla import lattice_heun_steps
+            k = e.rebuild_every
+            if n_steps % k:
+                # the closest cadence the loop can run (n_steps % k == 0):
+                # falling to 1 would run per-pass rebuilds while the
+                # engine says otherwise
+                k = max(d for d in range(1, e.rebuild_every + 1)
+                        if n_steps % d == 0)
+                warnings.warn(
+                    f"take_steps(n_steps={n_steps}) is not a multiple of "
+                    f"rebuild_every={e.rebuild_every}; rebuilding every "
+                    f"{k} steps for this call", stacklevel=2)
             self.d_X, self.d_old_v, self.aux = lattice_heun_steps(
-                int(n_steps), e.rebuild_every, pw_int, pw_friction,
-                self._fix_mode, e.grid_size, e.capacity, e.z_block,
-                self.d_X, self.d_old_v, self.d_n, dt, self.cube_size,
-                self._fix_point, precompute, e.pallas, None, None, None,
-                e.extras_cap, e.extras_block_cap)
+                n_steps, k, pw_int, pw_friction, self._fix_mode,
+                e.grid_size, e.capacity, e.z_block, self.d_X,
+                self.d_old_v, self.d_n, dt, self.cube_size,
+                self._fix_point, precompute, e.pallas, gen,
+                gen.args if gen is not None else None, e.force_r_max,
+                e.extras_cap, e.extras_block_cap, 0, False,
+                e.route_movers, e.x_split)
         else:
             self.d_X, self.d_old_v, self.aux = heun_steps(
                 n_steps, e, pw_int, pw_friction, self._fix_mode, self.d_X,
@@ -587,7 +616,8 @@ class Solution:
         if isinstance(self.engine, LatticeEngine):
             from .ops.lattice_xla import lattice_build
             lay = lattice_build(self.d_X, self.d_old_v, n, self.cube_size,
-                                self.engine.grid_size, self.engine.capacity)
+                                self.engine.grid_size, self.engine.capacity,
+                                x_split=self.engine.x_split)
             dropped = int(lay.n_dropped)
             if dropped:
                 problems["lattice_capacity_dropped"] = dropped
