@@ -209,7 +209,27 @@ own line:
     steps each: a build every 4 steps with ``force_r_max``, rebinning per
     step and per pass, thin x-cubes, mover routing with extras, 300
     seeded links as a generic force; every field within ``isclose``,
-    every flag equal.
+    every flag equal;
+31. K1 with ``z_halo`` on the settled 500k state at grid 64 and the
+    smallest capacity that drops nothing, split into 2 and into 4
+    z-slabs, the halo planes from the whole lattice: against its plain
+    version (counters exact, the rest within ``compare_sums``'s
+    tolerance), and each slab equal to the whole lattice's pass on it;
+    device ms per slab pass, the bound from the slab's bytes and
+    operations, registers and spills (the record's
+    ``lattice_pair[branching,z_halo]``; these checks run right after
+    phase 27's, early in the process);
+32. the z-slab path at full width: ``lattice_sharded_heun_steps(
+    pallas=True)`` on two ranks sharing the card (processes over gloo,
+    CUDA tensors staged through host memory), the branching force on the
+    settled 500k state, a build every 2 steps, ``ZSLAB_STEPS`` steps:
+    every flag 0, K1 twice a step on a rank, positions within atol 5e-5
+    of the single-process ``lattice_heun_steps``; ms a step beside the
+    transport's;
+33. the cells-axis step on two ranks: ``make_sharded_step`` on the 5k
+    sorting state with ``TileEngine`` (the windowed plain pass) against
+    the single-process steps, every field within ``isclose``;
+34. ``dryrun_multichip(2)`` and ``dryrun_multichip(4)`` on the card.
 
 It then prints the kernels' JSON record (each kernel's ``device_ms`` is
 its profiler time on its path's main shapes) and, last, the device
@@ -331,6 +351,11 @@ RESIDENT_500K = dict(grid_size=64, capacity=10, z_block=2, rebuild_every=4,
                      extras_cap=2048, extras_block_cap=24, force_r_max=1.0)
 RESIDENT_CUBE = 1.1
 RESIDENT_STEPS = 8
+# phase 32: the z-slab path's steps, and its capacity above phase 31's
+# (the smallest that drops nothing of the settled state) for the cells
+# the steps move
+ZSLAB_STEPS = 10
+ZSLAB_HEADROOM = 2
 
 
 def cuda_ms(fn, reps):
@@ -430,11 +455,12 @@ def ptxas_report(names):
     return report
 
 
-def stencil_candidates(cube, gx, gy, gz, x_split=1):
+def stencil_candidates(cube, gx, gy, gz, x_split=1, z_range=None):
     """Sum over the points of the live points in the cubes of each point's
     stencil (3 x 3 in z and y by 2 x_split + 1 in x: the candidates a
-    lattice pass must test), itself included.  ``cube``: int64 cube ids
-    of the live points."""
+    lattice pass must test), itself included; with ``z_range`` (z0, z1)
+    over the points of those planes only.  ``cube``: int64 cube ids of
+    the live points."""
     import torch
     k = x_split
     counts = torch.bincount(cube, minlength=gx * gy * gz).reshape(
@@ -443,7 +469,8 @@ def stencil_candidates(cube, gx, gy, gz, x_split=1):
     near = sum(pad[dz:dz + gz, dy:dy + gy, dx:dx + gx]
                for dz in range(3) for dy in range(3)
                for dx in range(2 * k + 1))
-    return float((counts * near).sum())
+    z0, z1 = z_range or (0, gz)
+    return float((counts * near)[z0:z1].sum())
 
 
 def compare_sums(tag, kernel, plain, exact, atol=ATOL):
@@ -2629,6 +2656,237 @@ def cadences_gpu_vs_cpu(dev):
               f"of the CPU in every field, flags equal {ends['cpu'][1]}")
 
 
+def k1_device_ms(fn, windows=3):
+    """Device ms per call of ``fn`` in K1's lattice kernel: the largest of
+    ``windows`` profiler windows, since a window that lost some of its
+    events reads low (a slab pass once read 0.06 ms beside its twin's
+    0.30, while CUDA events timed both wrappers at 0.32-0.38 ms)."""
+    return max(sum(profiled_ms(fn, ["lattice_pair_kernel"]).values())
+               for _ in range(windows))
+
+
+def min_capacity(X, old_v, n, cube, grid_size, C=8):
+    """The smallest capacity from ``C`` up at which a build of the state
+    drops no cell."""
+    from yalla_tpu_torch.ops.lattice_xla import lattice_build
+    while int(lattice_build(X, old_v, n, cube, grid_size, C).n_dropped):
+        C += 1
+    return C
+
+
+def zhalo_kernel_checks(dev):
+    """Phase 31: K1 with ``z_halo`` against its plain version on the main
+    path's settled 500k state at grid 64 and the smallest capacity that
+    drops nothing, split into 2 and into 4 z-slabs, each slab's halo
+    planes taken from the whole lattice (``lattice_spmd.slab_of``):
+    ``sum_f`` and ``epi_nbs`` exact, the other sums within
+    ``compare_sums``'s tolerance; each slab's sums equal to the kernel's
+    pass over the whole lattice on that slab, bit for bit; device ms per
+    slab pass (``k1_device_ms``), wrapper and plain ms, the bound from
+    the slab's bytes and operations; registers and spills.  Returns (the
+    record of the D 2 slab passes, the capacity)."""
+    import torch
+    from yalla_tpu_torch.interop import load_settled
+    from yalla_tpu_torch.models import branching as B
+    from yalla_tpu_torch.ops.common import friction_w_neighbour, grid_dims
+    from yalla_tpu_torch.ops.lattice_pallas import (lattice_pairwise_pallas,
+                                                    lattice_pairwise_plain)
+    from yalla_tpu_torch.ops.lattice_xla import lattice_build
+    from yalla_tpu_torch.parallel.lattice_spmd import slab_of
+    from yalla_tpu_torch.solvers import augment
+    X, old_v = load_settled(SETTLED, B.Cell, dev)
+    gs, n = 64, N_CELLS
+    C = min_capacity(X, old_v, n, 1.0, gs)
+    lay = lattice_build(X, old_v, n, 1.0, gs, C)
+    lay = lay._replace(T=augment(lay.T, n, B.precompute))
+    n_pad = lay.slot_of.shape[0]
+    force = B.make_force(B.Params())
+    kw = dict(grid_size=gs, capacity=C, z_block=2)
+    whole = flatten(lattice_pairwise_pallas(force, friction_w_neighbour, lay,
+                                            n, 1.0, **kw), "")
+    live = lay.pid < n_pad
+    live_cube = torch.nonzero(live).squeeze(1) // C
+    gx, gy, gz = grid_dims(gs)
+    plane = gx * gy * C
+    exact = {"sum_f", "epi_nbs"}
+    record = {}
+    for D in (2, 4):
+        n_local = gz // D * plane
+        errs, dev_ms, ms, plain_ms, bounds = [], [], [], [], []
+        for k in range(D):
+            shim, halo, gzl = slab_of(lay, gs, C, D, k)
+            slab = dict(grid_z=gzl, n_pad=n_pad, z_halo=halo, **kw)
+
+            def k1(shim=shim, slab=slab):
+                return lattice_pairwise_pallas(force, friction_w_neighbour,
+                                               shim, n, 1.0, **slab)
+
+            def k1_plain(shim=shim, slab=slab):
+                return lattice_pairwise_plain(force, friction_w_neighbour,
+                                              shim, n, 1.0, **slab)
+            got, want = k1(), k1_plain()
+            errs.append(compare_sums(f"K1 z_halo D {D} slab {k}",
+                                     flatten(got, ""), flatten(want, ""),
+                                     exact))
+            sl = slice(k * n_local, (k + 1) * n_local)
+            for name, a in flatten(got, "").items():
+                if not torch.equal(a, whole[name][sl]):
+                    raise AssertionError(f"K1 z_halo D {D} slab {k} {name}: "
+                                         f"not the whole lattice's pass")
+            ms.append(cuda_ms(k1, 10))
+            plain_ms.append(cuda_ms(k1_plain, 1))
+            dev_ms.append(k1_device_ms(k1))
+            # the slab's live cells and its two halo planes' read once
+            # (12 channels, the occupancy), 13 sums written per slot; the
+            # candidates of the slab's cells, the force on pairs in reach
+            n_read = int(live[sl].sum()) + int(halo[4].sum()) + \
+                int(halo[5].sum())
+            in_reach = float(want[1].sum())
+            cands = stencil_candidates(live_cube, gx, gy, gz, 1,
+                                       (k * gz // D, (k + 1) * gz // D))
+            bounds.append(bound(n_read * 12 * 4 + n_local + 2 * plane
+                                + n_local * 13 * 4,
+                                cands * OPS_DIST
+                                + in_reach * OPS_PER_PAIR["branching"]))
+        print(f"K1 z_halo, {D} slabs of {gz // D} planes (grid {gs}, C {C}, "
+              f"{n} cells): counters exact and each slab equal to the "
+              f"whole lattice's pass on it, max abs err vs plain "
+              f"{max(errs):.3g}; device ms per slab pass (torch.profiler) "
+              + ", ".join(f"{v:.4f}" for v in dev_ms)
+              + "; wrapper ms " + ", ".join(f"{v:.4f}" for v in ms)
+              + "; plain ms " + ", ".join(f"{v:.2f}" for v in plain_ms)
+              + "; bound ms " + ", ".join(f"{b[0]:.4f} ({b[1]})"
+                                          for b in bounds))
+        record[D] = {"max_abs_err": max(errs), "ms": max(ms),
+                     "device_ms": max(dev_ms), "plain_ms": max(plain_ms),
+                     "bound_ms": max(b[0] for b in bounds),
+                     "bound_by": bounds[0][1], "library_ms": None,
+                     "device_ms_per_slab": dev_ms}
+    whole_dev = k1_device_ms(lambda: lattice_pairwise_pallas(
+        force, friction_w_neighbour, lay, n, 1.0, **kw))
+    print(f"K1 on the whole grid-{gs}, C {C} lattice: {whole_dev:.4f} device "
+          f"ms per pass")
+    ptxas_report(["lattice_pair_kernel"])
+    rec = dict(record[2])
+    rec["device_ms_4_slabs"] = record[4]["device_ms_per_slab"]
+    rec["whole_lattice_device_ms"] = whole_dev
+    return rec, C
+
+
+def zslab_path(dev, C):
+    """Phase 32: the z-slab path at full width, two ranks on the card
+    (gloo, staged through host memory): ``lattice_sharded_heun_steps(
+    pallas=True)`` with the branching force, ``friction_w_neighbour`` and
+    ``polarity_precompute3`` on the settled 500k state, grid 64, capacity
+    ``C``, a build every 2 steps, ``ZSLAB_STEPS`` steps: every flag 0, K1
+    launched twice a step on the rank, positions within atol 5e-5
+    (``tests/test_parallel.py``'s) of the single-process
+    ``lattice_heun_steps`` at the same cadence and capacity on the card;
+    ms a step beside the transport's seconds.  Returns K1's launches on
+    the rank."""
+    import numpy as np
+    import torch
+    from yalla_tpu_torch.interop import load_settled, pt_to_numpy
+    from yalla_tpu_torch.models import branching as B
+    from yalla_tpu_torch.ops.common import friction_w_neighbour
+    from yalla_tpu_torch.ops.lattice_xla import lattice_heun_steps
+    from yalla_tpu_torch.parallel import dryrun
+    from yalla_tpu_torch.parallel._comm import spawn
+    p = B.Params()
+    X, old_v = load_settled(SETTLED, B.Cell, dev)
+    args = (N_CELLS, p.dt, 1.0, 64, C, 2, ZSLAB_STEPS, 2, True)
+    got = spawn(dryrun.run_slab, 2, "branching", pt_to_numpy(X),
+                pt_to_numpy(old_v), *args, warmup=True, backend="gloo",
+                device="cuda")
+    if any(got["flags"].values()):
+        raise AssertionError(f"z-slab path flags set: {got['flags']}")
+    if got["lattice_pair_launches"] != 2 * ZSLAB_STEPS:
+        raise AssertionError(f"z-slab path: K1 launched "
+                             f"{got['lattice_pair_launches']} times in "
+                             f"{ZSLAB_STEPS} steps on a rank")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Xs, _, aux = lattice_heun_steps(
+        ZSLAB_STEPS, 2, B.make_force(p), friction_w_neighbour, "com", 64, C,
+        2, X, old_v, N_CELLS, p.dt, 1.0, 0, B.precompute)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3 / ZSLAB_STEPS
+    flags = {k: float(v.float().max()) for k, v in aux.items()
+             if k.startswith("__err_")}
+    if any(flags.values()):
+        raise AssertionError(f"single-process run flags set: {flags}")
+    err = max(float(np.abs(got["X"][f][:N_CELLS]
+                           - getattr(Xs, f)[:N_CELLS].cpu().numpy()).max())
+              for f in "xyz")
+    if not err <= 5e-5:
+        raise AssertionError(f"z-slab path positions: max abs err {err:g} "
+                             f"against the single-process run")
+    ms = got["seconds"] * 1e3 / ZSLAB_STEPS
+    tr = got["transport_seconds"] * 1e3 / ZSLAB_STEPS
+    print(f"z-slab path: 2 ranks on the card ({got['transport']}), "
+          f"{N_CELLS} cells, grid 64, C {C}, a build every 2 steps, "
+          f"{ZSLAB_STEPS} steps: flags {got['flags']}, K1 launched "
+          f"{got['lattice_pair_launches']} times on rank 0, positions "
+          f"within {err:.3g} of the single-process run; {ms:.3f} ms/step "
+          f"on rank 0, of which the transport {tr:.3f} ms "
+          f"({got['transport_calls'] / ZSLAB_STEPS:.1f} collectives, "
+          f"{got['transport_bytes'] / ZSLAB_STEPS / 1e6:.1f} MB a step); "
+          f"the single-process run {single_ms:.3f} ms/step")
+    return got["lattice_pair_launches"]
+
+
+def cells_axis_path(dev):
+    """Phase 33: the cells-axis step, two ranks on the card:
+    ``make_sharded_step`` on the settled 5k sorting state (5,120 rows,
+    2,560 a rank) with ``TileEngine()`` (the windowed plain pass) and the
+    hand-written adhesion, 2 steps, against the single-process steps of
+    the plain all-pairs pass on the card: every field within the
+    reference's ``isclose`` and atol 1e-5, the flags 0."""
+    import numpy as np
+    from yalla_tpu_torch.interop import load_settled, pt_to_numpy
+    from yalla_tpu_torch.models import sorting as S
+    from yalla_tpu_torch.ops.common import friction_w_neighbour
+    from yalla_tpu_torch.parallel import dryrun
+    from yalla_tpu_torch.parallel._comm import spawn
+    from yalla_tpu_torch.solvers import TileEngine, heun_steps
+    sp = S.Params()
+    X, old_v = load_settled(SETTLED_5K, S.Cell, dev)
+    got = spawn(dryrun.run_cells, 2, TileEngine(), "sorting",
+                pt_to_numpy(X), pt_to_numpy(old_v), N5_CELLS, sp.dt, 1.0, 2,
+                warmup=True, backend="gloo", device="cuda")
+    Xs, _, aux = heun_steps(2, TileEngine(pallas=False, mxu=False),
+                            S.make_adhesion(sp), friction_w_neighbour,
+                            "com", X, old_v, N5_CELLS, sp.dt, 1.0)
+    if any(got["flags"].values()):
+        raise AssertionError(f"cells-axis path flags set: {got['flags']}")
+    worst = 0.0
+    for f in S.Cell._fields:
+        a = got["X"][f][:N5_CELLS]
+        b = getattr(Xs, f)[:N5_CELLS].cpu().numpy()
+        worst = max(worst, float(np.abs(a - b).max()))
+        if not ((np.abs(a - b) <= 1e-6 + 1e-2 * np.abs(b)).all()
+                and np.abs(a - b).max() <= 1e-5):
+            raise AssertionError(f"cells-axis path field {f}: max abs err "
+                                 f"{np.abs(a - b).max():g}")
+    print(f"cells-axis path: 2 ranks on the card ({got['transport']}), "
+          f"{N5_CELLS} cells in 5120 rows, 2 steps of the windowed plain "
+          f"pass: flags {got['flags']}, every field within {worst:.3g} of "
+          f"the single-process steps; "
+          f"{got['seconds'] * 1e3 / 2:.3f} ms/step on rank 0, transport "
+          f"{got['transport_seconds'] * 1e3 / 2:.3f} ms")
+
+
+def dryruns(dev):
+    """Phase 34: ``dryrun_multichip(2)`` and ``dryrun_multichip(4)`` on
+    the card (its asserts; rank 0 prints its two lines)."""
+    from yalla_tpu_torch.parallel.dryrun import dryrun_multichip
+    for d in (2, 4):
+        t0 = time.perf_counter()
+        out = dryrun_multichip(d, device="cuda")
+        print(f"dryrun_multichip({d}) on the card: {out}, "
+              f"{time.perf_counter() - t0:.1f} s with its ranks' start")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2667,6 +2925,9 @@ def main():
     ptxas_report(["pour_kernel"])
     del X, old_v
     thin_checks = thin_cube_checks(dev)
+    # phase 31's K1 z_halo checks run here, beside phase 3's: late in the
+    # process torch.profiler has returned windows with events missing
+    zhalo_check, zhalo_C = zhalo_kernel_checks(dev)
 
     # ---- the slice on a small input, against the plain path on the CPU ---
     # (the CPU path is the one the tests hold against the JAX package)
@@ -2737,6 +2998,14 @@ def main():
     cadences_gpu_vs_cpu(dev)
     print(f"phases 27-30: {time.perf_counter() - t_cadences:.1f} s")
 
+    # ---- the multi-device paths: the z-slab path, the cells axis, the dry
+    # runs (ranks sharing the card over gloo) -----------------------------
+    t_multi = time.perf_counter()
+    zslab_launches = zslab_path(dev, zhalo_C + ZSLAB_HEADROOM)
+    cells_axis_path(dev)
+    dryruns(dev)
+    print(f"phases 32-34: {time.perf_counter() - t_multi:.1f} s")
+
     lattice = (("pour", "yalla_tpu_torch/csrc/pour.cu",
                 "yalla_tpu/ops/lattice_pour.py:244"),
                ("lattice_pair", "yalla_tpu_torch/csrc/lattice_pair.cu",
@@ -2744,6 +3013,7 @@ def main():
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": tpu, "launches": launches[name],
                 **checks[name]} for name, src, tpu in lattice]
+    kernels[1]["z_halo_check"] = "lattice_pair[branching,z_halo]"
     for name, src, tpu, (err, ms, plain_ms, bound_ms, bound_by, dev_ms) in (
             ("central_pair", "central_pair.cu", "central_mxu.py:268",
              sort_k["central_pair"]),
@@ -2801,6 +3071,13 @@ def main():
                     "replaces": "yalla_tpu/ops/lattice_pallas.py:672",
                     "launches": thin_launches["lattice_pair"],
                     **thin_checks["lattice_pair"]})
+    # K1 with z_halo on the 500k lattice in 2 slabs, launched by a rank of
+    # phase 32's z-slab run
+    kernels.append({"name": "lattice_pair[branching,z_halo]",
+                    "route": "cuda",
+                    "source": "yalla_tpu_torch/csrc/lattice_pair.cu",
+                    "replaces": "yalla_tpu/ops/lattice_pallas.py:672",
+                    "launches": zslab_launches, **zhalo_check})
     # each kernel's launches on the flagship's paths and on the examples'
     # runs of phases 22 and 25, beside its own path's
     for k in kernels:

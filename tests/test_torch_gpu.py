@@ -306,6 +306,73 @@ def test_pair_kernel_matches_plain(cuda, case):
                                            atol=1e-5)
 
 
+# K1 on z-slabs: (grid, slabs); 18 planes in 2 slabs of 9, which the
+# brick's 2 planes do not divide
+ZHALO_CASES = {"d2": ((16, 16, 16), 2), "d4": ((16, 16, 16), 4),
+               "ragged_d2": ((16, 16, 18), 2)}
+
+
+@pytest.mark.parametrize("case", list(ZHALO_CASES))
+@pytest.mark.parametrize("functor", ["branching", IWG])
+def test_pair_kernel_zhalo_matches_plain(cuda, functor, case):
+    """K1 with ``z_halo`` on each z-slab of a lattice of 4,913 cells (grid
+    16, C 8, cells in every slab), the halo planes from the whole
+    lattice: against its plain version (counters exact, the other sums as
+    in ``test_pair_kernel_matches_plain``), and equal bit for bit to the
+    kernel's pass over the whole lattice on that slab."""
+    from yalla_tpu_torch.parallel.lattice_spmd import slab_of
+    grid, n_slabs = ZHALO_CASES[case]
+    n, n_pad, cap = 4913, 4992, 8
+    h, ov = _branching_cells(n, n_pad, 0.6, 17, seed=5)
+    Cell, force, pre = B.Cell, B.make_force(B.Params()), B.precompute
+    if functor == IWG:
+        m, h = _iwg_cells(h, n, seed=6)
+        Cell, force, pre = m.Cell, m.force, m.polarity_precompute
+    X = Cell(*(torch.as_tensor(h[f], device=cuda) for f in Cell._fields))
+    ovt = Float3(*(torch.as_tensor(ov[f], device=cuda) for f in "xyz"))
+    lay = lattice_build(X, ovt, n, 1.0, grid, cap)
+    assert int(lay.n_dropped) == 0 and int(lay.n_oob) == 0
+    lay = lay._replace(T=augment(lay.T, n, pre))
+    kw = dict(grid_size=grid, capacity=cap, z_block=2)
+    whole = lattice_pairwise_pallas(force, friction_w_neighbour, lay, n, 1.0,
+                                    **kw)
+
+    def mag(*args):    # each slot's sum of |term|, per dF field
+        dF, aux = force(*args)
+        return type(dF)(*(a.abs() for a in dF)), aux
+    n_local = lay.pid.shape[0] // n_slabs
+    for k in range(n_slabs):
+        shim, halo, gz = slab_of(lay, grid, cap, n_slabs, k)
+        slab = dict(grid_z=gz, n_pad=n_pad, z_halo=halo, **kw)
+        assert int((shim.pid < n_pad).sum()) > 100
+        before = lattice_pairwise_pallas.launches
+        got = lattice_pairwise_pallas(force, friction_w_neighbour, shim, n,
+                                      1.0, **slab)
+        assert lattice_pairwise_pallas.launches == before + 1
+        want = lattice_pairwise_plain(force, friction_w_neighbour, shim, n,
+                                      1.0, **slab)
+        mags = lattice_pairwise_plain(mag, friction_w_neighbour, shim, n,
+                                      1.0, **slab)
+        for f, a, b, c in zip(want[0]._fields, got[0], want[0], mags[0]):
+            tol = 1e-4 * b.abs() + 1e-5 * max(1.0, float(b.abs().max())) \
+                + 1e-6 * c
+            assert bool(((a - b).abs() <= tol).all()), (k, f)
+        assert torch.equal(got[1], want[1])                # sum of friction
+        for a, b in zip(got[2], want[2]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        for key in want[3]:
+            if key in ("epi_nbs", "mes_nbs"):
+                assert torch.equal(got[3][key], want[3][key]), key
+            else:
+                torch.testing.assert_close(got[3][key], want[3][key],
+                                           rtol=1e-4, atol=1e-5)
+        sl = slice(k * n_local, (k + 1) * n_local)
+        for a, b in zip([*got[0], got[1], *got[2], *got[3].values()],
+                        [*whole[0], whole[1], *whole[2],
+                         *whole[3].values()]):
+            assert torch.equal(a, b[sl]), k
+
+
 def test_pair_kernel_refuses_force_without_functor(cuda):
     lay = _layout(cuda)
 

@@ -8,6 +8,7 @@ Gabriel forms against each other: f32 rounding and summation order);
 trajectories within the reference's ``isclose`` (atol 1e-6 + rtol 1e-2).
 """
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -300,6 +301,51 @@ def test_lattice_integrator_refuses_generic_forces():
     for a, b in zip(t.d_X, j.d_X):
         np.testing.assert_allclose(a.numpy()[:n], np.asarray(b)[:n],
                                    rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("extras_cap", [0, 64])
+def test_take_step_on_a_resident_lattice_engine(extras_cap):
+    """``Solution.take_step`` on a ``LatticeEngine(rebuild_every=4)`` runs
+    one ``heun_steps`` step on the engine's ``pairwise`` (a build per
+    pass), as the JAX package's does: on the 60-cell tissue with
+    ``spring`` and the generic push, without extras and with 64 of them
+    (JAX's ``pallas=True`` engine), the positions within atol 1e-5 of
+    JAX's and the flags equal, and no warning; at ``rebuild_every`` 1
+    the slot-order integrator of ``take_steps`` gives the same step
+    within rtol 1e-5."""
+    n, pos, _ = random_tissue(seed=3, n=60, n_pad=128, half=2.0)
+    j = JSolution(JFloat3, n, engine=JLatticeEngine(
+        grid_size=16, rebuild_every=4, extras_cap=extras_cap,
+        pallas=bool(extras_cap)))
+    t = Solution(Float3, n, engine=LatticeEngine(
+        grid_size=16, rebuild_every=4, extras_cap=extras_cap), device="cpu")
+    for k, f in enumerate("xyz"):
+        getattr(j.h_X, f)[:n] = pos[:n, k]
+        getattr(t.h_X, f)[:n] = pos[:n, k]
+    j.copy_to_device()
+    t.copy_to_device()
+    j.take_step(0.1, j_spring, gen_forces=_j_push)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        t.take_step(0.1, spring, gen_forces=_push)
+    for a, b in zip(t.d_X, j.d_X):
+        np.testing.assert_allclose(a.numpy()[:n], np.asarray(b)[:n],
+                                   rtol=0, atol=1e-5)
+    flags = {k for k in j.aux if k.startswith("__err_")}
+    assert flags and flags <= set(t.aux)
+    for k in flags:
+        assert float(t.aux[k].max()) == float(np.max(np.asarray(j.aux[k]))), k
+
+    slot = Solution(Float3, n, engine=LatticeEngine(
+        grid_size=16, extras_cap=extras_cap), device="cpu")
+    for k, f in enumerate("xyz"):
+        getattr(slot.h_X, f)[:n] = pos[:n, k]
+    one = Solution(Float3, n, engine=slot.engine, device="cpu")
+    one.h_X = slot.h_X
+    slot.take_steps(1, 0.1, spring)
+    one.take_step(0.1, spring)
+    for a, b in zip(one.d_X, slot.d_X):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
 
 
 def test_check_grid_capacity_matches_jax():

@@ -39,15 +39,16 @@ SIGNATURES = {
     # S, K, n_pad, row_starts, n_rows, W, rows_per_block, blocks, out,
     # live, unrouted, stream
     "yalla_pour": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    # chans[kFields + 3], occ, echans[kFields + 3], ecube, eorder,
-    # estart, E_cap, gx, gy, gz, C, cube_size, xr, bz, by, bx, smem,
-    # params, out, eout, stream
-    "yalla_lattice_pair_branching": [_P, _P, _P, _P, _P, _P, _I,
-                                     _I, _I, _I, _I, _F, _I, _I, _I, _I,
-                                     _L, _P, _P, _P, _P],
+    # chans[kFields + 3], occ, lo_chans[kFields + 3], hi_chans[kFields +
+    # 3], lo_occ, hi_occ, echans[kFields + 3], ecube, eorder, estart,
+    # E_cap, gx, gy, gz, C, cube_size, xr, bz, by, bx, smem, params, out,
+    # eout, stream
+    "yalla_lattice_pair_branching": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                                     _I, _I, _L, _P, _P, _P, _P],
     "yalla_lattice_pair_intercalation_w_gradient": [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
-        _L, _P, _P, _P, _P],
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+        _I, _I, _I, _L, _P, _P, _P, _P],
     # chans[kFields + 3], n, n_pad, rows, S, chunk, params, part, out,
     # stream
     "yalla_tile_pair_branching": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],

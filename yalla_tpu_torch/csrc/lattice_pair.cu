@@ -27,6 +27,16 @@
 // cutoff stays cube_size.  xr = 1 runs its own instantiation (kThin
 // false), with the reach a compile-time 1.
 //
+// A z-slab of the lattice (the multi-device path, parallel/lattice_spmd.py;
+// the JAX package's ``z_halo``): the kernel's grid is the slab's gz planes,
+// and the two planes past its z faces come from the neighbouring slabs'
+// edge planes (channels and occupancy, one [gy * gx * C] plane each), read
+// where the halo's row lies at z = -1 or z = gz.  Sums are written for the
+// slab's own slots only.  The slab runs its own instantiation (kHalo); the
+// single-device path's (null planes) keeps the code it had without them,
+// which the first version with one instantiation for both slowed by a
+// tenth (0.470 -> 0.520 ms a 500k pass, kernel_profile.py --k1).
+//
 // Bound (branching): memory.  A pass writes 13 sums for every slot (109 MB
 // at gs 64^3, C 8) and reads the occupied slots' channels and the
 // occupancy (about 26 MB): about 0.04 ms on an H100.  Its arithmetic is below that line but
@@ -145,6 +155,15 @@ struct Brick {
   int bz, by, bx;  // cubes per block
 };
 
+// The exchanged z planes of a slab: channels and occupancy of the plane
+// below z = 0 (lo) and above z = gz - 1 (hi); null where there is none
+template <class Force>
+struct ZHalo {
+  Chans<Force> lo, hi;
+  const unsigned char* occ_lo;
+  const unsigned char* occ_hi;
+};
+
 template <class Force>
 struct Extras {
   Chans<Force> ch;
@@ -234,13 +253,46 @@ __device__ __forceinline__ void staged_pair(const Force& f,
          ch[(kOv + 2) * HC + e], acc);
 }
 
-template <class Force, bool kThin>
+// Stage halo x-row ``r`` of ``RL`` slots from ``src`` at slot ``base``
+// (one warp): asynchronous copies of its live slots' channels, its list of
+// live slots in slot order, and where each of its cubes starts in that list
+template <class Force>
+__device__ __forceinline__ void stage_row(const Chans<Force>& src, int base,
+                                          int r, int RL, int HC, int hx,
+                                          int C, const unsigned char* occ_s,
+                                          float4* rl, float* ch, int* cs) {
+  constexpr int kChans = Chans<Force>::kChans;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int count = 0;
+  for (int q0 = 0; q0 < RL; q0 += 32) {
+    const int q = q0 + lane, e = r * RL + q;
+    const bool live = q < RL && occ_s[e];
+    const unsigned m = __ballot_sync(0xffffffffu, live);
+    const int rank = count + __popc(m & below);
+    if (live) {
+      const int s = base + q;
+      float* p = (float*)(rl + r * RL + rank);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) cp_async4(p + k, src.p[k] + s);
+      p[3] = __int_as_float(e);
+#pragma unroll
+      for (int k = 3; k < kChans; ++k)
+        cp_async4(ch + (k - 3) * HC + e, src.p[k] + s);
+    }
+    if (q < RL && q % C == 0) cs[r * (hx + 1) + q / C] = rank;
+    count += __popc(m);
+  }
+  if (lane == 0) cs[r * (hx + 1) + hx] = count;
+}
+
+template <class Force, bool kThin, bool kHalo>
 __global__ void __launch_bounds__(kThreads, 2)
 lattice_pair_kernel(const Force f, const Grid g, const Brick br,
                     const Chans<Force> L,
                     const unsigned char* __restrict__ occ,
-                    const Extras<Force> E, float* __restrict__ out,
-                    const int thin_xr) {
+                    const ZHalo<Force> Z, const Extras<Force> E,
+                    float* __restrict__ out, const int thin_xr) {
   using Cell = typename Force::Cell;
   constexpr int kChans = Chans<Force>::kChans;
   constexpr int kOut = Force::kSums;
@@ -263,7 +315,6 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
                           (threadIdx.x - u) * kList;
   const long long n_slots = (long long)g.gx * g.gy * g.gz * C;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
 
   const int nbx = (g.gx + br.bx - 1) / br.bx;
   const int nby = (g.gy + br.by - 1) / br.by;
@@ -272,43 +323,40 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
   const int z0 = (blockIdx.x / (nbx * nby)) * br.bz;
 
   // 1. stage the halo.  First its occupancy, into the partner lists' room
-  //    (unused until step 3), all loads independent
+  //    (unused until step 3), all loads independent; a slab's rows at
+  //    z = -1 and z = gz read the exchanged planes
   unsigned char* occ_s = (unsigned char*)(plist - threadIdx.x);
+  const int plane = g.gy * g.gx * C;
   for (int i = threadIdx.x; i < HC; i += kThreads) {
     const int r = i / RL, xs = (x0 - xr) * C + i - r * RL;
     const int y = y0 + r % hy - 1, z = z0 + r / hy - 1;
-    occ_s[i] = y >= 0 && y < g.gy && z >= 0 && z < g.gz && xs >= 0 &&
-                       xs < g.gx * C
-                   ? occ[(z * g.gy + y) * g.gx * C + xs]
-                   : 0;
+    const bool in_xy = y >= 0 && y < g.gy && xs >= 0 && xs < g.gx * C;
+    if (kHalo) {
+      const unsigned char* o = z < 0       ? Z.occ_lo
+                               : z < g.gz  ? occ + z * plane
+                               : z == g.gz ? Z.occ_hi
+                                           : nullptr;
+      occ_s[i] = o && in_xy ? o[y * g.gx * C + xs] : 0;
+    } else {
+      occ_s[i] = in_xy && z >= 0 && z < g.gz
+                     ? occ[(z * g.gy + y) * g.gx * C + xs]
+                     : 0;
+    }
   }
   __syncthreads();
-  //    Then one warp per x-row of RL contiguous slots: asynchronous copies
-  //    of its live slots' channels, its list of live slots, and where each
-  //    of its cubes starts in that list; then the extras runs
+  //    Then one warp per x-row of RL contiguous slots (stage_row), from the
+  //    lattice or from an exchanged plane, the same source for the whole
+  //    warp; then the extras runs
   for (int r = warp; r < R; r += kWarps) {
     const int y = y0 + r % hy - 1, z = z0 + r / hy - 1;
-    const int base = ((z * g.gy + y) * g.gx + x0 - xr) * C;
-    int count = 0;
-    for (int q0 = 0; q0 < RL; q0 += 32) {
-      const int q = q0 + lane, e = r * RL + q;
-      const bool live = q < RL && occ_s[e];
-      const unsigned m = __ballot_sync(0xffffffffu, live);
-      const int rank = count + __popc(m & below);
-      if (live) {
-        const int s = base + q;
-        float* p = (float*)(rl + r * RL + rank);
-#pragma unroll
-        for (int k = 0; k < 3; ++k) cp_async4(p + k, L.p[k] + s);
-        p[3] = __int_as_float(e);
-#pragma unroll
-        for (int k = 3; k < kChans; ++k)
-          cp_async4(ch + (k - 3) * HC + e, L.p[k] + s);
-      }
-      if (q < RL && q % C == 0) cs[r * (hx + 1) + q / C] = rank;
-      count += __popc(m);
-    }
-    if (lane == 0) cs[r * (hx + 1) + hx] = count;
+    const int row = (y * g.gx + x0 - xr) * C;
+    if (kHalo && z < 0)
+      stage_row<Force>(Z.lo, row, r, RL, HC, hx, C, occ_s, rl, ch, cs);
+    else if (kHalo && z >= g.gz)
+      stage_row<Force>(Z.hi, row, r, RL, HC, hx, C, occ_s, rl, ch, cs);
+    else
+      stage_row<Force>(L, z * plane + row, r, RL, HC, hx, C, occ_s, rl, ch,
+                       cs);
   }
   int extras_here = 0;
   for (int hc = threadIdx.x; hc < H; hc += kThreads) {
@@ -329,17 +377,24 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
   const bool halo_extras = __syncthreads_or(extras_here);
 
   // 2. the work list: an exclusive prefix sum of the own cubes' live
-  //    counts (one warp), then each own cube's places in rl
+  //    counts (one warp), then each own cube's places in rl.  A ragged
+  //    brick's cubes past the grid own nothing: in a slab, its plane at
+  //    z = gz is the exchanged halo plane, staged but not the brick's
   auto own_cs = [&](int o) {  // own cube o's entry in cs
     const int ox = o % br.bx, oy = o / br.bx % br.by,
               oz = o / (br.bx * br.by);
     return ((oz + 1) * hy + oy + 1) * (hx + 1) + ox + xr;
   };
+  auto own_n = [&](int o) {  // own cube o's live cells
+    return kHalo && z0 + o / (br.bx * br.by) >= g.gz
+               ? 0
+               : cs[own_cs(o) + 1] - cs[own_cs(o)];
+  };
   if (threadIdx.x < 32) {
     const int per = (B + 31) / 32;
     const int o0 = min(lane * per, B), o1 = min(o0 + per, B);
     int local = 0;
-    for (int o = o0; o < o1; ++o) local += cs[own_cs(o) + 1] - cs[own_cs(o)];
+    for (int o = o0; o < o1; ++o) local += own_n(o);
     int incl = local;
     for (int d = 1; d < 32; d <<= 1) {
       const int v = __shfl_up_sync(0xffffffffu, incl, d);
@@ -348,7 +403,7 @@ lattice_pair_kernel(const Force f, const Grid g, const Brick br,
     int run = incl - local;
     for (int o = o0; o < o1; ++o) {
       off[o] = run;
-      run += cs[own_cs(o) + 1] - cs[own_cs(o)];
+      run += own_n(o);
     }
     if (lane == 31) off[B] = incl;
   }
@@ -525,11 +580,11 @@ extras_pair_kernel(const Force f, const Grid g, const Chans<Force> L,
   }
 }
 
-template <class Force, bool kThin>
+template <class Force, bool kThin, bool kHalo>
 int launch(const Force& f, const Grid& g, int xr, const Brick& br,
            long long smem, const Chans<Force>& L, const unsigned char* occ,
-           const Extras<Force>& E, float* out, float* eout,
-           cudaStream_t stream) {
+           const ZHalo<Force>& Z, const Extras<Force>& E, float* out,
+           float* eout, cudaStream_t stream) {
   const long long n_slots = (long long)g.gx * g.gy * g.gz * g.C;
   const long long HC = (long long)(br.bx + 2 * xr) * (br.by + 2) *
                        (br.bz + 2) * g.C;
@@ -540,7 +595,7 @@ int launch(const Force& f, const Grid& g, int xr, const Brick& br,
       n_slots >= (1LL << 31) || HC > 65535 || HC > 4 * kList * kThreads ||
       br.bx + 2 * xr > 32 || br.by > 30 || br.bz > 30 ||
       smem < smem_bytes(br, g.C, Chans<Force>::kChans, xr) ||
-      smem > 232448)
+      smem > 232448 || (kHalo && (E.cap > 0 || !Z.occ_lo || !Z.occ_hi)))
     return (int)cudaErrorInvalidValue;
   // above the default 48 KB a kernel takes dynamic shared memory only by
   // opting in; once per device, for the largest size asked so far
@@ -549,7 +604,7 @@ int launch(const Force& f, const Grid& g, int xr, const Brick& br,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices || smem > opted[dev]) {
-    err = cudaFuncSetAttribute(lattice_pair_kernel<Force, kThin>,
+    err = cudaFuncSetAttribute(lattice_pair_kernel<Force, kThin, kHalo>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -558,9 +613,9 @@ int launch(const Force& f, const Grid& g, int xr, const Brick& br,
   const int blocks = ((g.gx + br.bx - 1) / br.bx) *
                      ((g.gy + br.by - 1) / br.by) *
                      ((g.gz + br.bz - 1) / br.bz);
-  lattice_pair_kernel<Force, kThin><<<blocks, kThreads, (size_t)smem,
-                                      stream>>>(f, g, br, L, occ, E, out,
-                                                xr);
+  lattice_pair_kernel<Force, kThin, kHalo>
+      <<<blocks, kThreads, (size_t)smem, stream>>>(f, g, br, L, occ, Z, E,
+                                                   out, xr);
   if (E.cap > 0)
     extras_pair_kernel<Force, kThin>
         <<<(E.cap * 32 + kExtrasThreads - 1) / kExtrasThreads,
@@ -580,7 +635,9 @@ Chans<Force> chans_of(const void* const* ptrs) {
 // One entry point's work: the grid, brick and extras of its arguments
 template <class Force>
 int launch_entry(const Force& f, const void* const* chans,
-                 const unsigned char* occ, const void* const* echans,
+                 const unsigned char* occ, const void* const* lo_chans,
+                 const void* const* hi_chans, const unsigned char* lo_occ,
+                 const unsigned char* hi_occ, const void* const* echans,
                  const int* ecube, const int* eorder, const int* estart,
                  int E_cap, int gx, int gy, int gz, int C, float cube_size,
                  int xr, int bz, int by, int bx, long long smem, float* out,
@@ -590,17 +647,29 @@ int launch_entry(const Force& f, const void* const* chans,
   const Extras<Force> E{chans_of<Force>(echans), ecube, eorder, estart,
                         E_cap};
   const Chans<Force> L = chans_of<Force>(chans);
-  return xr == 1
-             ? launch<Force, false>(f, g, xr, br, smem, L, occ, E, out, eout,
-                                    stream)
-             : launch<Force, true>(f, g, xr, br, smem, L, occ, E, out, eout,
-                                   stream);
+  // a slab has both planes, each with its channels and occupancy
+  const bool halo = lo_occ || hi_occ || lo_chans || hi_chans;
+  if (halo && !(lo_occ && hi_occ && lo_chans && hi_chans))
+    return (int)cudaErrorInvalidValue;
+  const ZHalo<Force> Z{chans_of<Force>(lo_chans), chans_of<Force>(hi_chans),
+                       lo_occ, hi_occ};
+  if (halo)
+    return xr == 1 ? launch<Force, false, true>(f, g, xr, br, smem, L, occ,
+                                                Z, E, out, eout, stream)
+                   : launch<Force, true, true>(f, g, xr, br, smem, L, occ,
+                                               Z, E, out, eout, stream);
+  return xr == 1 ? launch<Force, false, false>(f, g, xr, br, smem, L, occ,
+                                               Z, E, out, eout, stream)
+                 : launch<Force, true, false>(f, g, xr, br, smem, L, occ, Z,
+                                              E, out, eout, stream);
 }
 
 }  // namespace
 
 // One entry point per functor.  chans / echans: host arrays of the
-// functor's kFields + 3 device pointers (lattice slots and extras); xr:
+// functor's kFields + 3 device pointers (lattice slots and extras);
+// lo_chans / hi_chans and lo_occ / hi_occ: a slab's exchanged z planes
+// (null on the single-device path; no extras with them); xr:
 // the x reach in cubes (1, or x_split); bz, by, bx, smem: the brick and
 // shared-memory bytes of ops/lattice_pallas.py::lattice_plan; params:
 // host array of the functor's parameter values (ops/functors.py,
@@ -608,15 +677,18 @@ int launch_entry(const Force& f, const void* const* chans,
 #define YALLA_LATTICE_ENTRY(NAME, FORCE, SET_PARAMS)                        \
   extern "C" int NAME(                                                     \
       const void* const* chans, const unsigned char* occ,                  \
+      const void* const* lo_chans, const void* const* hi_chans,            \
+      const unsigned char* lo_occ, const unsigned char* hi_occ,            \
       const void* const* echans, const int* ecube, const int* eorder,      \
       const int* estart, int E_cap, int gx, int gy, int gz, int C,         \
       float cube_size, int xr, int bz, int by, int bx, long long smem,     \
       const float* params, float* out, float* eout, cudaStream_t stream) { \
     FORCE f;                                                               \
     SET_PARAMS;                                                            \
-    return launch_entry(f, chans, occ, echans, ecube, eorder, estart,      \
-                        E_cap, gx, gy, gz, C, cube_size, xr, bz, by, bx,   \
-                        smem, out, eout, stream);                          \
+    return launch_entry(f, chans, occ, lo_chans, hi_chans, lo_occ,        \
+                        hi_occ, echans, ecube, eorder, estart, E_cap, gx,  \
+                        gy, gz, C, cube_size, xr, bz, by, bx, smem, out,   \
+                        eout, stream);                                     \
   }
 
 // the 10 BranchingParams values

@@ -32,6 +32,17 @@ one JSON line:
   window, over its steps), the device kernels launched, and the wall ms
   of each of ``WALL_WINDOWS`` unprofiled windows.
 
+    python3 yalla_tpu_torch/kernel_profile.py --k1 [ROOT ...]
+
+prints instead, per ROOT, one JSON line of ``k1`` alone (as above); with
+two trees in alternation, the verdict line as below.
+
+    python3 yalla_tpu_torch/kernel_profile.py --step-500k [ROOT ...]
+
+prints instead, per ROOT, one JSON line of ``k1`` and ``step_500k``
+alone (as above); with two trees in alternation, the verdict line as
+below.
+
     python3 yalla_tpu_torch/kernel_profile.py --k1-xsplit [ROOT ...]
 
 prints instead, per ROOT, one JSON line of ``k1_xsplit``: device ms per
@@ -261,12 +272,10 @@ def _one(root):
     from yalla_tpu_torch.models import sorting as S
     from yalla_tpu_torch.ops.common import friction_w_neighbour
     from yalla_tpu_torch.ops.central_mxu import central_pairwise_mxu
-    from yalla_tpu_torch.ops.lattice_pallas import lattice_pairwise_pallas
     from yalla_tpu_torch.ops.lattice_pour import pour_pallas
-    from yalla_tpu_torch.ops.lattice_xla import lattice_build, sort_by_cube
+    from yalla_tpu_torch.ops.lattice_xla import sort_by_cube
     from yalla_tpu_torch.ops.tile_pallas import tile_pairwise_pallas
-    from yalla_tpu_torch.solvers import (GabrielEngine, Solution,
-                                         TileEngine, augment)
+    from yalla_tpu_torch.solvers import GabrielEngine, Solution, TileEngine
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     _build.library()
@@ -287,17 +296,10 @@ def _one(root):
     # K1 and the 500k slice
     cfg = bench_config(root / "bench_state.json", "branching_500000")
     engine = bench_engine(cfg)
-    force = B.make_force(B.Params())
     cube, gs, C = float(cfg["cube"]), engine.grid_size, engine.capacity
     settled = cache / "settled_branching_500000_s0_v1.npz"
     X, ov = load_settled(settled, B.Cell, dev)
-    lay = lattice_build(X, ov, 500_000, cube, gs, C, engine.extras_cap)
-    lay = lay._replace(T=augment(lay.T, 500_000, B.precompute),
-                       E=augment(lay.E, 500_000, B.precompute))
-    out["k1"] = _device_windows(lambda: lattice_pairwise_pallas(
-        force, friction_w_neighbour, lay, 500_000, cube, grid_size=gs,
-        capacity=C, z_block=engine.z_block,
-        extras_block_cap=engine.extras_block_cap), 10, K1_KERNELS, True)
+    out["k1"] = _k1_500k(root)
     cs = sort_by_cube(X, ov, 500_000, cube, gs, C)
     if hasattr(cs, "row_starts"):
         def pour():
@@ -306,15 +308,8 @@ def _one(root):
         def pour():
             pour_pallas(cs.S, gs[0] * gs[1] * gs[2] * C)
     out["k2"] = _device_windows(pour, 20, ("pour_kernel",))
-    del X, ov, lay, cs
-    sol = solution(settled, 500_000, engine, cube, B.Cell)
-    dt = B.Params().dt
-
-    def step500k():
-        sol.take_steps(1, dt, force, precompute=B.precompute)
-    out["step_500k"] = {**_device_windows(step500k, 4, K1_KERNELS),
-                        "wall_ms": _wall_ms(step500k, 10)}
-    del sol
+    del X, ov, cs
+    out["step_500k"] = _step_500k(root)
 
     # K3 and the 5k slice on it
     sp = S.Params()
@@ -364,6 +359,81 @@ def _one(root):
                               fresh=True),
             "wall_ms": _wall_ms(iwg_step(dev), 5)}
     return out
+
+
+def _k1_500k(root):
+    """Device ms per pass of each K1 kernel on the settled 500k state at
+    ``bench_state.json`` ``branching_500000`` (the tree at ``root``
+    imported)."""
+    import torch
+    from yalla_tpu_torch.interop import (bench_config, bench_engine,
+                                         load_settled)
+    from yalla_tpu_torch.models import branching as B
+    from yalla_tpu_torch.ops.common import friction_w_neighbour
+    from yalla_tpu_torch.ops.lattice_pallas import lattice_pairwise_pallas
+    from yalla_tpu_torch.ops.lattice_xla import lattice_build
+    from yalla_tpu_torch.solvers import augment
+    cfg = bench_config(root / "bench_state.json", "branching_500000")
+    engine = bench_engine(cfg)
+    cube, gs, C = float(cfg["cube"]), engine.grid_size, engine.capacity
+    X, ov = load_settled(root / ".bench_cache" /
+                         "settled_branching_500000_s0_v1.npz", B.Cell,
+                         torch.device("cuda"))
+    lay = lattice_build(X, ov, 500_000, cube, gs, C, engine.extras_cap)
+    lay = lay._replace(T=augment(lay.T, 500_000, B.precompute),
+                       E=augment(lay.E, 500_000, B.precompute))
+    return _device_windows(lambda: lattice_pairwise_pallas(
+        B.make_force(B.Params()), friction_w_neighbour, lay, 500_000, cube,
+        grid_size=gs, capacity=C, z_block=engine.z_block,
+        extras_block_cap=engine.extras_block_cap), 10, K1_KERNELS, True)
+
+
+def _step_500k(root):
+    """Device busy ms, kernels and wall ms per step of the 500k slice
+    (``take_steps(1)`` on ``bench_state.json`` ``branching_500000``'s
+    engine, the tree at ``root`` imported)."""
+    import torch
+    from yalla_tpu_torch.interop import (bench_config, bench_engine,
+                                         load_settled)
+    from yalla_tpu_torch.models import branching as B
+    from yalla_tpu_torch.solvers import Solution
+    dev = torch.device("cuda")
+    cfg = bench_config(root / "bench_state.json", "branching_500000")
+    engine = bench_engine(cfg)
+    X, ov = load_settled(root / ".bench_cache" /
+                         "settled_branching_500000_s0_v1.npz", B.Cell, dev)
+    sol = Solution(B.Cell, 500_000, engine=engine,
+                   cube_size=float(cfg["cube"]), device=dev)
+    sol.h_X = B.Cell(*(a.cpu().numpy() for a in X))
+    sol.h_n = 500_000
+    sol.copy_to_device()
+    sol.d_old_v = ov
+    force, dt = B.make_force(B.Params()), B.Params().dt
+
+    def step():
+        sol.take_steps(1, dt, force, precompute=B.precompute)
+    return {**_device_windows(step, 4, K1_KERNELS),
+            "wall_ms": _wall_ms(step, 10)}
+
+
+def _k1(root):
+    """Device ms of K1 on the 500k state, as a dict."""
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    from yalla_tpu_torch import _build
+    _build.library()
+    return {"root": str(root), "card": card(), "k1": _k1_500k(root)}
+
+
+def _k1_step(root):
+    """Device ms of K1 on the 500k state and the 500k step's, as a
+    dict."""
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    from yalla_tpu_torch import _build
+    _build.library()
+    return {"root": str(root), "card": card(), "k1": _k1_500k(root),
+            "step_500k": _step_500k(root)}
 
 
 def _k1_xsplit(root):
@@ -499,16 +569,17 @@ def main(argv):
         print(json.dumps(_plans(argv[1] if len(argv) > 1 else
                                 Path(__file__).resolve().parent.parent)))
         return
-    if len(argv) >= 2 and argv[0] in ("--one", "--one-k1-xsplit"):
+    ones = {"--one": _one, "--one-k1": _k1, "--one-k1-xsplit": _k1_xsplit,
+            "--one-step-500k": _k1_step}
+    if len(argv) >= 2 and argv[0] in ones:
         import torch
         if not torch.cuda.is_available():
             raise SystemExit("kernel_profile: no CUDA device")
-        one = _one if argv[0] == "--one" else _k1_xsplit
-        print(json.dumps(one(argv[1])))
+        print(json.dumps(ones[argv[0]](argv[1])))
         return
     mode = "--one"
-    if argv[:1] == ["--k1-xsplit"]:
-        mode, argv = "--one-k1-xsplit", argv[1:]
+    if argv[:1] in (["--k1"], ["--k1-xsplit"], ["--step-500k"]):
+        mode, argv = "--one" + argv[0][1:], argv[1:]
     roots = argv or [str(Path(__file__).resolve().parent.parent)]
     runs = []
     for root in roots:

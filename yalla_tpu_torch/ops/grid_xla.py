@@ -15,8 +15,10 @@ Counterpart of ``yalla_tpu/ops/grid_xla.py`` (ref solvers.cuh:345-644):
 
 This gather form is the port's brute-force Gabriel oracle.  The JAX
 package's ``gabriel_windowed`` exists only to avoid XLA:TPU gathers and is
-not ported; JAX's own tests hold it equal to the gather form.  The
-``i_offset`` / ``i_size`` window of the sharded path is not ported.
+not ported; JAX's own tests hold it equal to the gather form.  Both
+passes take the ``(i_offset, i_size)`` window of the sharded cells path
+(``parallel/spmd.py``): the rows ``[i_offset, i_offset + i_size)`` summed
+against the whole population.
 """
 from __future__ import annotations
 
@@ -110,18 +112,27 @@ def _concat(outs):
     return F, sum_f, sum_v, aux
 
 
+def _window(n_pad, i_offset, i_size, device):
+    """The row ids ``[i_offset, i_offset + i_size)`` (default: all)."""
+    if i_size is None:
+        i_size = n_pad - i_offset
+    return torch.arange(i_offset, i_offset + i_size, device=device)
+
+
 def grid_pairwise(pw_int, pw_friction, X, old_v, n, cube_size, *,
-                  grid_size=50, row_cap=32, i_block=4096):
+                  grid_size=50, row_cap=32, i_block=4096, i_offset=0,
+                  i_size=None):
     """Pairwise sums over grid neighbours with the ``dist < cube_size``
     cutoff (ref ``Grid_computer::pwints`` + ``compute_cube``,
-    solvers.cuh:430-499); the grid is rebuilt on every call, as the
-    reference rebuilds it per pass.  Returns per-point
-    ``(F, sum_f, sum_v, aux)`` with the per-point ``__err_grid_overflow``
+    solvers.cuh:430-499) for the rows ``[i_offset, i_offset + i_size)``
+    (default: all) against the whole population; the grid is rebuilt on
+    every call, as the reference rebuilds it per pass.  Returns per-row
+    ``(F, sum_f, sum_v, aux)`` with the per-row ``__err_grid_overflow``
     in aux."""
     n_pad = X.x.shape[0]
     tables = build_grid(X, n, cube_size, grid_size)
     outs = []
-    for ids in torch.arange(n_pad, device=X.x.device).split(i_block):
+    for ids in _window(n_pad, i_offset, i_size, X.x.device).split(i_block):
         rs, re = row_ranges(tables, tables.cid[ids], grid_size)
         jidx, valid = _candidates(tables.order, rs, re, row_cap)
         Xi = type(X)(*(a[ids][:, None, None] for a in X))
@@ -202,10 +213,12 @@ def _gabriel_block(pw_int, pw_friction, X, old_v, n, cube_size, tables, *,
 
 def gabriel_pairwise(pw_int, pw_friction, X, old_v, n, cube_size, *,
                      grid_size=50, row_cap=32, gabriel_coefficient=0.8,
-                     i_block=256, max_candidates=100):
+                     i_block=256, max_candidates=100, i_offset=0,
+                     i_size=None):
     """Grid neighbours pruned to (scaled) Gabriel-graph pairs
     (``compute_cube_gabriel``, ref solvers.cuh:509-602), in blocks of
-    ``i_block`` points.  The midpoint test runs on the ``max_candidates``
+    ``i_block`` points, for the rows ``[i_offset, i_offset + i_size)``
+    (default: all).  The midpoint test runs on the ``max_candidates``
     nearest candidates of each point (the point itself among them, kept
     as the diagonal); more set ``__err_gabriel_candidates``."""
     n_pad = X.x.shape[0]
@@ -215,5 +228,6 @@ def gabriel_pairwise(pw_int, pw_friction, X, old_v, n, cube_size, *,
                            row_cap=row_cap,
                            gabriel_coefficient=gabriel_coefficient,
                            max_candidates=max_candidates)
-            for ids in torch.arange(n_pad, device=X.x.device).split(i_block)]
+            for ids in _window(n_pad, i_offset, i_size,
+                               X.x.device).split(i_block)]
     return _concat(outs)

@@ -20,6 +20,10 @@ in extras order when the layout carries overflow extras (with the scalar
 Thin x-cubes (``x_split = k > 1``, the JAX package's option): x is binned
 at ``cube_size / k``, ``gx`` counts the thin cubes, and every pass reaches
 +-k cubes in x (+-1 in y and z); the cutoff stays ``cube_size``.
+
+A z-slab (the multi-device path, ``parallel/lattice_spmd.py``): the layout
+holds the slab's ``grid_z`` planes, ``n_pad`` is the empty-slot sentinel,
+and ``z_halo`` the neighbours' exchanged planes, as in the JAX function.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ import torch
 
 from .common import cube_coord, cube_ids, evaluate_pairs, grid_dims
 from .functors import pair_functor, param_array, require, unpack_sums
-from .lattice_xla import lattice_pairwise_resident, stencil_slots
+from .lattice_xla import (_pad_axis, lattice_pairwise_resident,
+                          pairwise_on_padded, stencil_slots)
 
 __all__ = ["lattice_pairwise_pallas", "lattice_pairwise_plain",
            "extras_block_overflow", "lattice_plan", "LatticePlan",
@@ -181,16 +186,72 @@ def extras_block_overflow(layout, cube_size, grid_size, z_block,
     return torch.clamp(counts - cap, min=0).sum().to(torch.float32)
 
 
+def _check_slab(layout, grid_z, z_halo):
+    """Refuse a slab with overflow extras (the JAX package's z-slab shim
+    carries none), a ``z_halo`` that is not six parts, and one of
+    ``grid_z`` and ``z_halo`` without the other."""
+    if (grid_z is None) != (z_halo is None):
+        raise ValueError("lattice pair pass: a z-slab takes grid_z and "
+                         "z_halo together")
+    if z_halo is None:
+        return
+    if layout.E is not None:
+        raise ValueError("lattice pair pass: z_halo takes no overflow "
+                         "extras")
+    if len(z_halo) != 6:
+        raise ValueError("lattice pair pass: z_halo is (lo_leaves, "
+                         "hi_leaves, lo_ov, hi_ov, lo_occ, hi_occ)")
+
+
+def slab_on_padded(pw_int, pw_friction, layout, cube_size, *, grid_size,
+                   capacity, grid_z, n_pad, z_halo, x_split=1):
+    """The pair pass of a z-slab of ``grid_z`` planes with its exchanged
+    planes (``z_halo``) through :func:`lattice_xla.pairwise_on_padded`.
+    The halo planes' slots take ids from ``n_pad + 1`` on (the planes
+    carry no ids; ``i == j`` must hold on the diagonal only)."""
+    lo_l, hi_l, lo_ov, hi_ov, lo_occ, hi_occ = z_halo
+    gx, gy, _ = grid_dims(grid_size)
+    W = gx * capacity
+    plane = gy * W
+
+    def stack(lo, a, hi, fill):
+        a = torch.cat([lo.reshape(1, gy, W), a.reshape(grid_z, gy, W),
+                       hi.reshape(1, gy, W)])
+        return _pad_axis(a, 1, 1, 1, fill)
+    T = layout.T
+    P = type(T)(*(stack(lo, a, hi, 0.0)
+                  for lo, a, hi in zip(lo_l, T, hi_l)))
+    Pov = type(layout.Tov)(*(stack(lo, a, hi, 0.0)
+                             for lo, a, hi in zip(lo_ov, layout.Tov, hi_ov)))
+    Pocc = stack(lo_occ, layout.pid < n_pad, hi_occ, False)
+    ids = torch.arange(n_pad + 1, n_pad + 1 + 2 * plane,
+                       device=layout.pid.device)
+    Ppid = stack(ids[:plane], layout.pid, ids[plane:], n_pad)
+    return pairwise_on_padded(pw_int, pw_friction, P, Pov, Pocc, Ppid,
+                              cube_size, grid_size=gx, capacity=capacity,
+                              x_split=x_split)
+
+
 def lattice_pairwise_plain(pw_int, pw_friction, layout, n, cube_size, *,
                            grid_size, capacity, z_block,
-                           extras_block_cap=16, x_split=1):
+                           extras_block_cap=16, grid_z=None, n_pad=None,
+                           z_halo=None, x_split=1):
     """Plain torch version of the pair pass, generic over the force.
 
     The lattice-lattice sums are ``lattice_pairwise_resident``'s; with
     overflow extras, each extra's stencil of lattice slots (+-1 cube in z
     and y, +-``x_split`` in x) is evaluated both ways (the lattice sides
     scatter-added into the slot sums) and the extras pair all-against-all,
-    diagonal included, as in the JAX kernel's merge."""
+    diagonal included, as in the JAX kernel's merge.  A z-slab
+    (``grid_z``, ``n_pad``, ``z_halo``) runs :func:`slab_on_padded`."""
+    _check_slab(layout, grid_z, z_halo)
+    if z_halo is not None:
+        gx, gy, _ = grid_dims(grid_size)
+        n_pad = n_pad if n_pad is not None else layout.slot_of.shape[0]
+        return slab_on_padded(pw_int, pw_friction, layout, cube_size,
+                              grid_size=(gx, gy, grid_z), capacity=capacity,
+                              grid_z=grid_z, n_pad=n_pad, z_halo=z_halo,
+                              x_split=x_split)
     F, sum_f, sum_v, aux = lattice_pairwise_resident(
         pw_int, pw_friction, layout, n, cube_size, grid_size=grid_size,
         capacity=capacity, x_split=x_split)
@@ -252,28 +313,44 @@ def _force_spec(pw_int, pw_friction):
 
 def lattice_pairwise_pallas(pw_int, pw_friction, layout, n, cube_size, *,
                             grid_size, capacity, z_block,
-                            extras_block_cap=16, x_split=1):
+                            extras_block_cap=16, grid_z=None, n_pad=None,
+                            z_halo=None, x_split=1):
     """Lattice pair-pass wrapper: launches ``csrc/lattice_pair.cu`` for
     CUDA tensors, runs :func:`lattice_pairwise_plain` for CPU tensors,
     raises for anything else.  ``lattice_pairwise_pallas.launches`` counts
     kernel launches.  ``z_block`` is the JAX kernel's block height, which
     sets the blocks of ``__err_extras_block``; ``x_split`` the thin
-    x-cubes' reach."""
+    x-cubes' reach.
+
+    A z-slab, as in the JAX function: ``grid_z`` is the slab's own z
+    extent, ``n_pad`` the empty-slot sentinel of ``layout.pid`` (where
+    ``slot_of`` is not the stable ids' table), and ``z_halo`` the planes
+    past its z faces from the neighbouring slabs, ``(lo_leaves,
+    hi_leaves, lo_ov, hi_ov, lo_occ, hi_occ)``, each a ``[gy * gx * C]``
+    plane (the leaves in the order of ``layout.T``'s fields, the
+    occupancy bool).  ``grid_z`` and ``z_halo`` come together.  Sums are
+    returned for the slab's own slots; a slab with overflow extras is
+    refused."""
     dev = layout.pid.device
     if dev.type == "cpu":
         return lattice_pairwise_plain(
             pw_int, pw_friction, layout, n, cube_size, grid_size=grid_size,
             capacity=capacity, z_block=z_block,
-            extras_block_cap=extras_block_cap, x_split=x_split)
+            extras_block_cap=extras_block_cap, grid_z=grid_z, n_pad=n_pad,
+            z_halo=z_halo, x_split=x_split)
     if dev.type != "cuda":
         raise ValueError(f"lattice pair kernel: unsupported device {dev}")
+    _check_slab(layout, grid_z, z_halo)
     from .. import _build
     spec, params = _force_spec(pw_int, pw_friction)
     gx, gy, gz = grid_dims(grid_size)
+    if grid_z is not None:
+        gz = grid_z
     C = capacity
     n_cubes = gx * gy * gz
     n_slots = n_cubes * C
-    n_pad = layout.slot_of.shape[0]
+    if n_pad is None:
+        n_pad = layout.slot_of.shape[0]
     f32 = torch.float32
 
     def channels(P, ov, size, what):
@@ -284,6 +361,19 @@ def lattice_pairwise_pallas(pw_int, pw_friction, layout, n, cube_size, *,
 
     chans = channels(layout.T, layout.Tov, n_slots, "T")
     occ = (layout.pid < n_pad).to(torch.uint8)
+    if z_halo is not None:
+        halo = []
+        for k, side in enumerate(("lo", "hi")):
+            leaves = type(layout.T)(*z_halo[k])
+            halo.append(channels(leaves, z_halo[2 + k], gx * gy * C,
+                                 f"z_halo {side}"))
+        lo_chans, hi_chans = (_build.pointers(h) for h in halo)
+        lo_occ, hi_occ = (require(o, (gx * gy * C,), torch.bool, dev,
+                                  "lattice pair kernel: z_halo occupancy")
+                          .to(torch.uint8) for o in z_halo[4:])
+        z_args = (lo_chans, hi_chans, lo_occ.data_ptr(), hi_occ.data_ptr())
+    else:
+        z_args = (None, None, None, None)
     M = len(spec["dF"]) + len(spec["aux"]) + 4
     out = torch.empty((M, n_slots), dtype=f32, device=dev)
     has_e = layout.E is not None
@@ -310,7 +400,8 @@ def lattice_pairwise_pallas(pw_int, pw_friction, layout, n, cube_size, *,
     lib = _build.library()
     lattice_pairwise_pallas.launches += 1
     _build.check(getattr(lib, spec["entries"]["lattice"])(
-        _build.pointers(chans), occ.data_ptr(), *e_args, gx, gy, gz, C,
+        _build.pointers(chans), occ.data_ptr(), *z_args, *e_args, gx, gy,
+        gz, C,
         float(cube_size), int(x_split), *plan.brick, plan.smem,
         param_array(spec, params), out.data_ptr(),
         eout.data_ptr() if has_e else None, _build.stream_handle(dev)),

@@ -11,13 +11,14 @@ Cells past a cube's capacity C spill into a small cube-sorted side list
 
 Ported: ``lattice_build`` (sort + pour + extras divert, mover routing,
 thin x-cubes), ``lattice_rebin`` (slot-space rebinning), ``slot_to_stable``,
-``lattice_unbuild``, the plain stencil pass ``lattice_pairwise_resident``,
+``lattice_unbuild``, the plain stencil pass ``lattice_pairwise_resident``
+and its core ``pairwise_on_padded`` (channels with one halo plane at each
+z and y edge: a z-slab's exchanged planes in ``parallel/lattice_spmd.py``),
 the resident cadence's staleness certificate (``_gap_deficit`` and
 ``state_deficit``) and every cadence of ``lattice_heun_steps``: a fresh
 binning before every pass, the resident cadence (``rebuild_every > 1``),
 rebinning per chunk, per step or per pass, mover routing and generic forces
-in the slot loop.  ``pairwise_on_padded`` and the ``(i_offset, i_size)``
-window serve only the sharded engines and are not ported.
+in the slot loop.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ from .common import (ERR_PREFIX, apply_derived_aux, apply_post_pair,
 
 __all__ = ["LatticeLayout", "CubeSort", "sort_by_cube", "lattice_build",
            "lattice_rebin", "lattice_unbuild", "slot_to_stable",
-           "stencil_slots", "lattice_pairwise_resident", "lattice_heun_steps",
+           "stencil_slots", "lattice_pairwise_resident", "pairwise_on_padded",
+           "lattice_heun_steps",
            "lattice_overflow_count", "cube_extrema", "state_deficit",
            "lattice_grid_for", "pick_lattice_dims"]
 
@@ -528,38 +530,71 @@ def stencil_slots(cx, cy, cz, grid_size, capacity, x_split=1):
 
 def lattice_pairwise_resident(pw_int, pw_friction, layout, n, cube_size, *,
                               grid_size, capacity, x_split=1):
-    """Plain pairwise sums in lattice layout (no overflow extras).
-
-    Each occupied slot's candidates are the C slots of the cubes of its
-    stencil (:func:`stencil_slots`: +-1 cube in z and y, +-``x_split``
-    thin cubes in x; self included: the diagonal gets the full force),
-    evaluated as pair blocks over blocks of occupied slots with
-    ``evaluate_pairs`` and the ``cube_size`` cutoff.  The ids passed to
-    the force are stable ids.  (The JAX function sweeps the same stencil
-    as shifted slices of the whole grid, which avoids gathers on the
-    TPU.)  Returns (F, sum_friction, sum_v 3-tuple, aux dict), all
-    ``[n_slots]``, zero at empty slots."""
+    """Plain pairwise sums in lattice layout (no overflow extras): the
+    lattice's channels with an empty plane at each z and y edge through
+    :func:`pairwise_on_padded`.  Returns (F, sum_friction, sum_v 3-tuple,
+    aux dict), all ``[n_slots]``, zero at empty slots."""
     del n
-    gx, gy, _ = grid_dims(grid_size)
+    gx, gy, gz = grid_dims(grid_size)
+    n_pad = layout.slot_of.shape[0]
+
+    def padded(a, fill):
+        a = a.reshape(gz, gy, gx * capacity)
+        return _pad_axis(_pad_axis(a, 0, 1, 1, fill), 1, 1, 1, fill)
+    P = type(layout.T)(*(padded(a, 0.0) for a in layout.T))
+    Pov = Float3(*(padded(a, 0.0) for a in layout.Tov))
+    return pairwise_on_padded(
+        pw_int, pw_friction, P, Pov, padded(layout.pid < n_pad, False),
+        padded(layout.pid, n_pad), cube_size, grid_size=gx,
+        capacity=capacity, x_split=x_split)
+
+
+def pairwise_on_padded(pw_int, pw_friction, P, Pov, Pocc, Ppid, cube_size, *,
+                       grid_size, capacity, z_block=None, x_split=1):
+    """Plain pass over channels that already carry one halo plane at each
+    z and y edge, ``[gz + 2, gy + 2, gx * C]``: a z-slab's planes
+    exchanged with its neighbours, or empty ones.  Returns the flat
+    ``[gz * gy * gx * C]`` sums of the interior, zero at empty slots.
+
+    Each occupied interior slot's candidates are the C slots of the cubes
+    of its stencil (:func:`stencil_slots` in the padded grid: +-1 cube in
+    z and y, +-``x_split`` thin cubes in x; self included: the diagonal
+    gets the full force), occupied per ``Pocc``, evaluated in pair blocks
+    with ``evaluate_pairs`` and the ``cube_size`` cutoff.  The ids passed
+    to the force are ``Ppid``'s, unique across the padded grid (stable
+    ids inside; ``lattice_pallas.slab_on_padded`` gives the halo planes
+    ids past ``n_pad``), so ``i == j`` holds on the diagonal only.  (The JAX
+    function sweeps the same stencil as shifted slices of the whole grid,
+    which avoids gathers on the TPU; ``z_block`` is its slab height, not
+    needed here.)"""
+    del z_block
+    gx = grid_dims(grid_size)[0]
     C = capacity
-    T, pid = layout.T, layout.pid
-    n_slots, n_pad = pid.shape[0], layout.slot_of.shape[0]
-    occ = pid < n_pad
-    i_all = torch.nonzero(occ).squeeze(1)
+    gz, gy = Pocc.shape[0] - 2, Pocc.shape[1] - 2
+    W = gx * C
+    n_slots = gz * gy * W
+    T = type(P)(*(a.reshape(-1) for a in P))
+    ov = [a.reshape(-1) for a in Pov]
+    occ, pid = Pocc.reshape(-1), Ppid.reshape(-1)
+    dev = occ.device
+    i_all = torch.nonzero(Pocc[1:-1, 1:-1].reshape(-1)).squeeze(1)
     width = 9 * (2 * x_split + 1) * C
     sums = []
     for i in i_all.split(max(1, PAIR_BLOCK // width)) or (i_all,):
         cube = torch.div(i, C, rounding_mode="floor")
-        j, ok = stencil_slots(cube % gx, (cube // gx) % gy, cube // (gx * gy),
-                              grid_size, C, x_split)
+        cx, cy = cube % gx, (cube // gx) % gy
+        cz = cube // (gx * gy)
+        ip = ((cz + 1) * (gy + 2) + cy + 1) * W + i % W
+        j, ok = stencil_slots(cx, cy + 1, cz + 1, (gx, gy + 2, gz + 2), C,
+                              x_split)
         sums.append(evaluate_pairs(
-            pw_int, pw_friction, type(T)(*(a[i, None] for a in T)),
-            type(T)(*(a[j] for a in T)), [a[j] for a in layout.Tov],
-            pid[i, None], pid[j], ok & occ[j], sum_axes=(1,),
+            pw_int, pw_friction, type(T)(*(a[ip, None] for a in T)),
+            type(T)(*(a[j] for a in T)), [a[j] for a in ov],
+            pid[ip, None], pid[j], ok & occ[j], sum_axes=(1,),
             cutoff=cube_size))
 
     def place(parts):
-        out = torch.zeros(n_slots, dtype=torch.float32, device=pid.device)
+        out = torch.zeros(n_slots, dtype=torch.float32, device=dev)
         out[i_all] = torch.cat(parts)
         return out
     F = type(sums[0][0])(*(place([s[0][k] for s in sums])
@@ -754,9 +789,11 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
         n_occ = sum(live.sum() for _, live, _ in parts)
 
         def com(f):
-            s = sum(torch.where(live, getattr(d, f), 0.0).sum()
-                    for d, live, _ in parts)
-            return s / torch.clamp(n_occ, min=1)
+            # summed in f64, so that the drift does not depend on the
+            # order of the sum (a split lattice sums it per slab)
+            s = sum(torch.where(live, getattr(d, f), 0.0)
+                    .sum(dtype=torch.float64) for d, live, _ in parts)
+            return (s / torch.clamp(n_occ, min=1)).to(torch.float32)
 
         def at_point(f):
             # value at the pinned stable id's slot (or extras entry)

@@ -14,15 +14,19 @@ from .common import evaluate_pairs
 __all__ = ["tile_pairwise"]
 
 
-def tile_pairwise(pw_int, pw_friction, X, old_v, n, *, j_block=1024):
-    """Pairwise sums over all pairs of the first ``n`` points.
+def tile_pairwise(pw_int, pw_friction, X, old_v, n, *, j_block=1024,
+                  i_offset=0, i_size=None):
+    """Pairwise sums of the points ``[i_offset, i_offset + i_size)``
+    (default: all of them) against every one of the first ``n`` points.
 
-    Returns (dF (Pt [n_pad]), sum_friction [n_pad], sum_v ([n_pad],) * 3,
-    aux dict of [n_pad])."""
+    Returns (dF (Pt [i_size]), sum_friction [i_size], sum_v ([i_size],) * 3,
+    aux dict of [i_size])."""
     n_pad = X.x.shape[0]
+    if i_size is None:
+        i_size = n_pad - i_offset
     idx = torch.arange(n_pad, device=X.x.device)
-    Xi = type(X)(*(a[:, None] for a in X))
-    i_arr = idx[:, None]
+    Xi = type(X)(*(a[i_offset:i_offset + i_size, None] for a in X))
+    i_arr = idx[i_offset:i_offset + i_size, None]
     total = None
     for j0 in range(0, n_pad, j_block):
         jb = idx[j0:j0 + j_block]

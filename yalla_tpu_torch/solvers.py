@@ -58,17 +58,24 @@ class TileEngine:
     The kernel wrappers run their plain versions on CPU tensors.  The
     ``n_pad % 128`` condition is the TPU kernels' layout rule: it is kept
     on the CPU, where it keeps the routing identical to JAX's, and dropped
-    on CUDA, whose kernels take any ``n_pad``."""
+    on CUDA, whose kernels take any ``n_pad``.
+
+    The ``(i_offset, i_size)`` window (the rows the sharded cells path,
+    ``parallel/spmd.py``, gives each rank) goes to the plain pass, as JAX
+    routes it: the kernels sum the whole population only, and JAX's
+    sharded path runs no Pallas kernel either."""
     j_block: int | None = None
     pallas: bool | None = None
     mxu: bool | None = None
 
-    def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size):
+    def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size,
+                 i_offset=0, i_size=None):
         del cube_size  # no cutoff in the all-pairs engine
         cuda = X.x.device.type == "cuda"
         use_pallas = self.pallas if self.pallas is not None else cuda
         use_mxu = self.mxu if self.mxu is not None else use_pallas
-        aligned = cuda or X.x.shape[0] % 128 == 0
+        aligned = (cuda or X.x.shape[0] % 128 == 0) \
+            and _whole(i_offset, i_size)
         if use_mxu and aligned \
                 and getattr(pw_int, "fields", None) is not None \
                 and hasattr(pw_int, "coef") \
@@ -79,21 +86,30 @@ class TileEngine:
             from .ops.tile_pallas import tile_pairwise_pallas
             return tile_pairwise_pallas(pw_int, pw_friction, X, old_v, n)
         return tile_pairwise(pw_int, pw_friction, X, old_v, n,
-                             j_block=self.j_block or 1024)
+                             j_block=self.j_block or 1024,
+                             i_offset=i_offset, i_size=i_size)
+
+
+def _whole(i_offset, i_size):
+    """True for the window of the whole population."""
+    return i_offset == 0 and i_size is None
 
 
 @dataclass(frozen=True)
 class GridEngine:
     """Spatial-hash O(N) with the ``dist < cube_size`` cutoff
-    (ref Grid_computer, solvers.cuh:465-502); ``ops/grid_xla.py``."""
+    (ref Grid_computer, solvers.cuh:465-502); ``ops/grid_xla.py``, with
+    its ``(i_offset, i_size)`` window."""
     grid_size: int = 50
     row_cap: int = 32
     i_block: int = 4096
 
-    def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size):
+    def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size,
+                 i_offset=0, i_size=None):
         return grid_pairwise(pw_int, pw_friction, X, old_v, n, cube_size,
                              grid_size=self.grid_size, row_cap=self.row_cap,
-                             i_block=self.i_block)
+                             i_block=self.i_block, i_offset=i_offset,
+                             i_size=i_size)
 
 
 @dataclass(frozen=True)
@@ -113,7 +129,9 @@ class GabrielEngine:
     ``windowed`` says: the JAX package's windowed form avoids XLA:TPU
     gathers and is not ported (JAX's tests hold the two forms equal), so
     its window settings have no counterpart here.  ``z_block`` is the TPU
-    kernel's block height, read only by :meth:`_lattice_fits`."""
+    kernel's block height, read only by :meth:`_lattice_fits`.  A window
+    ``(i_offset, i_size)`` runs the gather form, as in JAX: K5 sums the
+    whole population only."""
     grid_size: int = 50
     row_cap: int = 32
     gabriel_coefficient: float = 0.8
@@ -131,10 +149,11 @@ class GabrielEngine:
         return ((gx * self.capacity) % 128 == 0 and gy % 8 == 0
                 and gz % self.z_block == 0)
 
-    def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size):
+    def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size,
+                 i_offset=0, i_size=None):
         use_lattice = self.lattice if self.lattice is not None \
             else X.x.device.type == "cuda"
-        if use_lattice:
+        if use_lattice and _whole(i_offset, i_size):
             from .ops.gabriel_pallas import gabriel_lattice_pallas
             return gabriel_lattice_pallas(
                 pw_int, pw_friction, X, old_v, n, cube_size,
@@ -145,7 +164,8 @@ class GabrielEngine:
             pw_int, pw_friction, X, old_v, n, cube_size,
             grid_size=self.grid_size, row_cap=self.row_cap,
             gabriel_coefficient=self.gabriel_coefficient,
-            i_block=self.i_block, max_candidates=self.max_candidates)
+            i_block=self.i_block, max_candidates=self.max_candidates,
+            i_offset=i_offset, i_size=i_size)
 
 
 @dataclass(frozen=True)
@@ -197,13 +217,19 @@ class LatticeEngine:
             zb -= 1
         object.__setattr__(self, "z_block", max(zb, 1))
 
-    def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size):
+    def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size,
+                 i_offset=0, i_size=None):
         """One pair pass in stable-id order: a fresh binning
         (``lattice_build``, whose pour is K2), the pair pass in slot order
         (K1), every sum gathered back by ``slot_to_stable``, the overflow
         extras' sums written at their ids, and the pass's own flags
         (dropped cells lose all their pairs; out-of-grid cells are
-        mis-binned, ref solvers.cuh:361-364)."""
+        mis-binned, ref solvers.cuh:361-364).  The pass covers the whole
+        population: a window raises ``ValueError``, where JAX asserts."""
+        if not _whole(i_offset, i_size):
+            raise ValueError("LatticeEngine.pairwise takes no (i_offset, "
+                             "i_size) window; the z-slab path is "
+                             "parallel.lattice_spmd.ShardedLatticeEngine")
         from .ops.lattice_pallas import lattice_pairwise_pallas
         from .ops.lattice_xla import (_merge_extras, lattice_build,
                                       slot_to_stable)
@@ -261,7 +287,10 @@ def _fix_components(dX, n, active, fix_mode, fix_point):
     """Momentum fix: COM drift (default), pinned point, or xy-point/z-COM
     (ref solvers.cuh:196-208, 240-253).  Only x, y, z are ever fixed."""
     def com(a):
-        return torch.where(active, a, 0.0).sum() / n
+        # summed in f64, so that the drift does not depend on the order
+        # of the sum (the cells axis sums it per rank)
+        return (torch.where(active, a, 0.0).sum(dtype=torch.float64)
+                / n).to(torch.float32)
     if fix_mode == "com":
         return com(dX.x), com(dX.y), com(dX.z)
     if fix_mode == "point":
@@ -535,10 +564,25 @@ class Solution:
     def take_step(self, dt, pw_int, *, pw_friction=friction_w_neighbour,
                   gen_forces=None, precompute=None, check_errors=True):
         """One Heun step (ref Solution::take_step, solvers.cuh:94-105):
-        ``take_steps(1, ...)``."""
-        return self.take_steps(1, dt, pw_int, pw_friction=pw_friction,
-                               gen_forces=gen_forces, precompute=precompute,
-                               check_errors=check_errors)
+        :func:`heun_steps` on ``engine.pairwise`` for every engine, as in
+        the JAX package.  On a ``LatticeEngine`` that rebuilds the lattice
+        before each pass whatever ``rebuild_every`` says (its cadence is
+        :meth:`take_steps`'), and a generic force composes with its
+        overflow extras."""
+        self._ensure_device()
+        self._heun_steps(1, dt, pw_int, pw_friction,
+                         _as_generic(gen_forces), precompute)
+        if check_errors:
+            self._check_errors()
+        return self.aux
+
+    def _heun_steps(self, n_steps, dt, pw_int, pw_friction, gen,
+                    precompute):
+        self.d_X, self.d_old_v, self.aux = heun_steps(
+            n_steps, self.engine, pw_int, pw_friction, self._fix_mode,
+            self.d_X, self.d_old_v, self.d_n, dt, self.cube_size,
+            self._fix_point, precompute, gen,
+            gen.args if gen is not None else None)
 
     def take_steps(self, n_steps, dt, pw_int, *,
                    pw_friction=friction_w_neighbour, gen_forces=None,
@@ -580,10 +624,8 @@ class Solution:
                 e.extras_cap, e.extras_block_cap, 0, False,
                 e.route_movers, e.x_split)
         else:
-            self.d_X, self.d_old_v, self.aux = heun_steps(
-                n_steps, e, pw_int, pw_friction, self._fix_mode, self.d_X,
-                self.d_old_v, self.d_n, dt, self.cube_size, self._fix_point,
-                precompute, gen, gen.args if gen is not None else None)
+            self._heun_steps(n_steps, dt, pw_int, pw_friction, gen,
+                             precompute)
         if check_errors:
             self._check_errors()
         return self.aux
