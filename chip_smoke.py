@@ -229,7 +229,25 @@ own line:
 33. the cells-axis step on two ranks: ``make_sharded_step`` on the 5k
     sorting state with ``TileEngine`` (the windowed plain pass) against
     the single-process steps, every field within ``isclose``;
-34. ``dryrun_multichip(2)`` and ``dryrun_multichip(4)`` on the card.
+34. ``dryrun_multichip(2)`` and ``dryrun_multichip(4)`` on the card;
+35. the windowed Gabriel pass (``ops/grid_xla.gabriel_windowed``, plain
+    torch on the card): (a) one pass at the 100k half-space tissue
+    (``GABRIEL_100K``'s grid and NC, the JAX engine's window settings)
+    against K5 and against the gather form, no kernel launched, every
+    flag 0, the friction sums and shared flags exact, the other sums
+    within ``compare_sums``'s tolerance; (b) ``RELAX_STEPS`` steps of the
+    growth_w_wall example's relaxation engine (500 cells in 102,400 rows)
+    windowed against gather: flags equal, positions within ``isclose``;
+    ms a pass and a step of each form by CUDA events;
+36. ``lattice_heun_steps(pallas=False)`` (the JAX package's XLA route,
+    which has no overflow extras; the port runs it through K2 and K1 as
+    it runs ``pallas=True``) on the settled 500k state at grid 64, the
+    smallest capacity that drops nothing (phase 31's), cube 1.0, rebuild
+    1, ``PLAIN_STEPS`` steps, against ``pallas=True`` with
+    ``extras_cap=0`` at the same settings: ``extras_cap`` refused on
+    ``pallas=False``, K1 and K2 twice a step on each route, flags equal
+    and 0, positions within ``compare_sums``'s tolerance; ms a step of
+    each.
 
 It then prints the kernels' JSON record (each kernel's ``device_ms`` is
 its profiler time on its path's main shapes) and, last, the device
@@ -355,6 +373,10 @@ RESIDENT_STEPS = 8
 # (the smallest that drops nothing of the settled state) for the cells
 # the steps move
 ZSLAB_STEPS = 10
+# phase 35 (b): steps of the growth_w_wall relaxation on each Gabriel form
+RELAX_STEPS = 5
+# phase 36: steps of lattice_heun_steps on each route
+PLAIN_STEPS = 2
 ZSLAB_HEADROOM = 2
 
 
@@ -1888,7 +1910,7 @@ def example_setup(name, dev):
     """(a fresh copy of example ``name``'s initial state on ``dev``, the
     seconds its ``setup`` took on the card): the setup runs once, with the
     initial conditions' generator seeded (growth_w_wall's 101-step
-    relaxation on the gather path is the longest), and an automatic
+    relaxation on the windowed Gabriel pass), and an automatic
     engine is picked then."""
     import torch
     from yalla_tpu_torch import inits
@@ -2072,7 +2094,8 @@ def gww_capacity(dev):
     engine's 8.  From one relaxed state (:func:`example_setup`),
     ``GWW_STEPS`` steps with the same draws (made on the card from a
     seeded generator) on three engines: the gather Gabriel path
-    (``lattice=False``, plain torch, which reads no capacity), K5 at C 16
+    (``lattice=False, windowed=False``, plain torch, which reads no
+    capacity), K5 at C 16
     and K5 at C 8.  Prints, for each, the most cells in one cube of the
     64-cube grid in the state each step starts from, counted by
     ``torch.bincount`` (no kernel), and the step at which the C 8 run's
@@ -2094,7 +2117,8 @@ def gww_capacity(dev):
             cube_ids(sol.d_X, n, sol.cube_size, gs)[:n]).max())
     relaxed = fullest(src)
     snap = snapshot(src)
-    runs = {"gather": dataclasses.replace(src.engine, lattice=False),
+    runs = {"gather": dataclasses.replace(src.engine, lattice=False,
+                                          windowed=False),
             "C 16": dataclasses.replace(src.engine, capacity=16),
             "C 8": dataclasses.replace(src.engine, capacity=8)}
     sols, states, seen, raised = {}, {}, {}, None
@@ -2133,8 +2157,8 @@ def gww_capacity(dev):
 def more_example_runs(dev):
     """Phase 25: each of ``MORE_RUNS``'s ``run`` on the card at its
     published size (from :func:`example_setup`: growth_w_wall's
-    relaxation on the gather Gabriel path, passive_growth's ball relaxed
-    on K3), its
+    relaxation on the windowed Gabriel pass, passive_growth's ball
+    relaxed on K3), its
     frames written into a temporary directory, the launch counts set to 0
     just before ``run`` and read just after (growth_w_wall: K5 and K2
     twice a step, the others no kernel), the state finite; ms a step with
@@ -2887,6 +2911,195 @@ def dryruns(dev):
               f"{time.perf_counter() - t0:.1f} s with its ranks' start")
 
 
+def gabriel_windowed_pass(dev):
+    """Phase 35 (a): one pass of the windowed Gabriel form at the 100k
+    half-space tissue (``GABRIEL_100K``'s grid and NC, the window
+    settings of the JAX engine's defaults) against K5 and against the
+    gather form: no kernel launched by the windowed pass, every flag 0,
+    the friction sums and the flags the forms share exact, F and sum_v
+    within ``compare_sums``'s tolerance; ms a pass of each (CUDA
+    events).  Returns {form: ms a pass}."""
+    import dataclasses
+
+    import torch
+    from yalla_tpu_torch.kernel_profile import GABRIEL_100K, gabriel_tissue
+    from yalla_tpu_torch.models import growth_w_wall as W
+    from yalla_tpu_torch.ops.gabriel_pallas import gabriel_lattice_pallas
+    from yalla_tpu_torch.solvers import GabrielEngine
+    X, ov, n = gabriel_tissue(NG_CELLS, dev)
+    args = (W.relu_force, W.wall_friction, X, ov, n, W.r_max)
+    win = GabrielEngine(grid_size=GABRIEL_100K["grid_size"],
+                        max_candidates=GABRIEL_100K["max_candidates"],
+                        lattice=False)
+    gather = dataclasses.replace(win, windowed=False)
+    forms = {"windowed": lambda: win.pairwise(*args),
+             "gather": lambda: gather.pairwise(*args),
+             "K5": lambda: gabriel_lattice_pallas(*args, **GABRIEL_100K)}
+    wrappers = reset_launches()
+    outs = {"windowed": forms["windowed"]()}
+    torch.cuda.synchronize()
+    launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+    if launched:
+        raise AssertionError(f"windowed Gabriel pass launched {launched}")
+    outs["gather"], outs["K5"] = forms["gather"](), forms["K5"]()
+    for form, out in outs.items():
+        flags = {k: float(v.max()) for k, v in out[3].items()}
+        if any(flags.values()):
+            raise AssertionError(f"Gabriel {form} 100k: flags {flags}")
+    errs = {}
+    for other in ("K5", "gather"):
+        got, want = flatten(outs["windowed"], "", n), \
+            flatten(outs[other], "", n)
+        common = {k: got[k] for k in want if k in got}
+        errs[other] = compare_sums(f"windowed vs {other} 100k", common,
+                                   want, {"sum_f", *outs[other][3]})
+    ms = {form: cuda_ms(fn, 3 if form == "gather" else 10)
+          for form, fn in forms.items()}
+    print(f"phase 35 (a) windowed Gabriel pass on the 100k half-space "
+          f"tissue ({n} cells in {X.x.shape[0]} rows, grid "
+          f"{win.grid_size}, NC {win.max_candidates}, block {win.i_block}, "
+          f"subgroup {win.subgroup}, window {win.window_cap}, salvage "
+          f"{win.salvage_cap}): no kernel launched, every flag 0, sum_f and "
+          f"the shared flags exact against K5 and the gather form, max abs "
+          f"err {errs['K5']:.3g} and {errs['gather']:.3g}; ms a pass: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    return ms
+
+
+def relaxation_forms(dev):
+    """Phase 35 (b): ``RELAX_STEPS`` steps of the growth_w_wall example's
+    relaxation engine (``GabrielEngine(grid_size=64, row_cap=128,
+    lattice=False)``, ``windowed`` its default) from the example's seed
+    ball (500 cells in 102,400 rows), against the same engine with
+    ``windowed=False`` (the gather form): no kernel launched, every flag
+    equal and 0, positions within ``isclose``; ms a step of each (CUDA
+    events) and the seconds of the example's whole 101-step relaxation on
+    the windowed pass (its setup in phase 25).  Returns {form: ms a
+    step}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from yalla_tpu_torch import inits
+    from yalla_tpu_torch.links import wall_forces
+    from yalla_tpu_torch.models import growth_w_wall as W
+    from yalla_tpu_torch.ops.common import friction_on_background
+    from yalla_tpu_torch.solvers import GabrielEngine
+    m = example("growth_w_wall")
+    inits.set_seed(2)
+    seed = m.seed_ball(dev)
+    snap = snapshot(seed)
+    relax = GabrielEngine(grid_size=64, row_cap=128, lattice=False)
+    engines = {"windowed": relax,
+               "gather": dataclasses.replace(relax, windowed=False)}
+    ends, flags, ms = {}, {}, {}
+    for form, engine in engines.items():
+        sol = solution_at(seed, snap, dev, engine)
+        wrappers = reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(RELAX_STEPS):
+            aux = sol.take_step(W.dt, W.relu_force,
+                                pw_friction=friction_on_background,
+                                gen_forces=wall_forces(W.WALL))
+        end.record()
+        torch.cuda.synchronize()
+        ms[form] = start.elapsed_time(end) / RELAX_STEPS
+        launched = {k: w.launches for k, w in wrappers.items()
+                    if w.launches}
+        if launched:
+            raise AssertionError(f"relaxation on the {form} form launched "
+                                 f"{launched}")
+        flags[form] = {k: float(v.max()) for k, v in aux.items()
+                       if k.startswith("__err_")}
+        ends[form] = sol.copy_to_host()
+    n = seed.h_n
+    if flags["windowed"] != {**flags["gather"], "__err_gabriel_window": 0.0} \
+            or any(flags["windowed"].values()):
+        raise AssertionError(f"relaxation flags: {flags}")
+    for f in "xyz":
+        a, b = (getattr(ends[k], f)[:n] for k in ("windowed", "gather"))
+        if not (np.abs(a - b) <= 1e-6 + 1e-2 * np.abs(b)).all():
+            raise AssertionError(f"relaxation field {f}: windowed and "
+                                 f"gather disagree (max abs err "
+                                 f"{np.abs(a - b).max():g})")
+    setup_s = SETUPS["growth_w_wall"][2] if "growth_w_wall" in SETUPS \
+        else None
+    print(f"phase 35 (b) the growth_w_wall relaxation, {n} cells in "
+          f"{seed.n_pad} rows, {RELAX_STEPS} steps on each form: no kernel "
+          f"launched, flags {flags['windowed']} (the gather form's equal), "
+          f"positions within isclose; ms a step: windowed "
+          f"{ms['windowed']:.3f}, gather {ms['gather']:.3f}; the example's "
+          f"setup (seed ball and 101 windowed relaxation steps) took "
+          + (f"{setup_s:.2f} s" if setup_s is not None else "not run"))
+    return ms
+
+
+def plain_lattice_route(dev, C):
+    """Phase 36: ``lattice_heun_steps(pallas=False)`` (JAX's XLA route,
+    which has no overflow extras; the port's pour and pair pass still run
+    through their kernel wrappers) for ``PLAIN_STEPS`` steps on the
+    settled 500k state at grid 64, capacity ``C``, cube 1.0, rebuild 1,
+    the branching force, against ``pallas=True`` at the same settings with
+    ``extras_cap=0``: ``extras_cap`` refused with ``ValueError`` on
+    ``pallas=False``; the launch counts set to 0 just before each route
+    and read just after (K1 and K2 twice a step on both), every flag
+    equal and 0, x, y and z within ``compare_sums``'s tolerance; ms a step
+    of each (CUDA events, after one run of each).  Returns {route: ms a
+    step}."""
+    import torch
+    from yalla_tpu_torch.interop import load_settled
+    from yalla_tpu_torch.models import branching as B
+    from yalla_tpu_torch.ops.common import friction_w_neighbour
+    from yalla_tpu_torch.ops.lattice_xla import lattice_heun_steps
+    p = B.Params()
+    force = B.make_force(p)
+    X, ov = load_settled(SETTLED, B.Cell, dev)
+
+    def run(pallas, **kw):
+        return lattice_heun_steps(
+            PLAIN_STEPS, 1, force, friction_w_neighbour, "com", 64, C, 4, X,
+            ov, N_CELLS, p.dt, 1.0, 0, B.precompute, pallas, **kw)
+    try:
+        run(False, extras_cap=2048)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("phase 36: pallas=False took extras_cap")
+    routes = (("pallas=False", False), ("pallas=True", True))
+    outs, counts = {}, {}
+    for route, pallas in routes:
+        wrappers = reset_launches()
+        outs[route] = run(pallas)
+        torch.cuda.synchronize()
+        counts[route] = {k: w.launches for k, w in wrappers.items()
+                         if w.launches}
+    want = {"pour": 2 * PLAIN_STEPS, "lattice_pair": 2 * PLAIN_STEPS}
+    if any(c != want for c in counts.values()):
+        raise AssertionError(f"phase 36 launches {counts}, expected {want} "
+                             f"on each route")
+    flags = {route: {k: float(v.max()) for k, v in out[2].items()
+                     if k.startswith("__err_")}
+             for route, out in outs.items()}
+    a, b = (flags[r] for r, _ in routes)
+    if a != b or any(a.values()):
+        raise AssertionError(f"phase 36 flags: {flags}")
+    pos = {route: {f: getattr(out[0], f)[:N_CELLS] for f in "xyz"}
+           for route, out in outs.items()}
+    err = compare_sums("phase 36 positions, pallas=True vs pallas=False",
+                       pos["pallas=True"], pos["pallas=False"], set())
+    ms = {route: cuda_ms(lambda: run(pallas), 1) / PLAIN_STEPS
+          for route, pallas in routes}
+    print(f"phase 36 lattice_heun_steps(pallas=False) at {N_CELLS} cells "
+          f"(grid 64, C {C}, cube 1.0, rebuild 1, {PLAIN_STEPS} steps): "
+          f"extras_cap refused ({refused}); launches {counts}, flags {a} "
+          f"on both routes, positions within the pair-pass tolerance, max "
+          f"abs err {err:.3g}; ms a step: pallas=False "
+          f"{ms['pallas=False']:.3f}, pallas=True {ms['pallas=True']:.3f}")
+    return ms
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3005,6 +3218,14 @@ def main():
     cells_axis_path(dev)
     dryruns(dev)
     print(f"phases 32-34: {time.perf_counter() - t_multi:.1f} s")
+
+    # ---- the last two routes of the JAX package: the windowed Gabriel
+    # pass, and the lattice integrator's XLA route (pallas=False) --------
+    t_routes = time.perf_counter()
+    gabriel_windowed_pass(dev)
+    relaxation_forms(dev)
+    plain_lattice_route(dev, zhalo_C)
+    print(f"phases 35-36: {time.perf_counter() - t_routes:.1f} s")
 
     lattice = (("pour", "yalla_tpu_torch/csrc/pour.cu",
                 "yalla_tpu/ops/lattice_pour.py:244"),

@@ -205,12 +205,22 @@ def test_solver_selection_matches_jax():
 
 
 def test_gabriel_engine_routes_by_device_on_the_cpu():
-    """On CPU tensors ``GabrielEngine()`` runs the gather form (as JAX off
-    the TPU); ``lattice=True`` runs the lattice pass's plain version."""
+    """On CPU tensors ``GabrielEngine()`` runs the windowed form (as JAX off
+    the TPU), ``windowed=False`` the gather form; ``lattice=True`` runs
+    the lattice pass's plain version."""
     from yalla_tpu_torch.ops.gabriel_pallas import gabriel_lattice_plain
     n, pos, ov = random_tissue()
     _, _, tX, tov = both(pos, ov)
     e = GabrielEngine(grid_size=16, row_cap=48, max_candidates=64)
+    got = e.pairwise(spring, friction_w_neighbour, tX, tov, n, 1.0)
+    want = TG.gabriel_windowed(spring, friction_w_neighbour, tX, tov, n, 1.0,
+                               grid_size=16, i_block=256, window_cap=64,
+                               max_candidates=64, row_cap=48, subgroup=16)
+    assert set(got[3]) == set(want[3]) == {"__err_grid_overflow",
+                                           "__err_gabriel_candidates",
+                                           "__err_gabriel_window"}
+    assert torch.equal(got[1], want[1])
+    e = dataclasses.replace(e, windowed=False)
     got = e.pairwise(spring, friction_w_neighbour, tX, tov, n, 1.0)
     want = TG.gabriel_pairwise(spring, friction_w_neighbour, tX, tov, n, 1.0,
                                grid_size=16, row_cap=48, max_candidates=64)

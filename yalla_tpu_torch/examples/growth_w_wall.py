@@ -9,7 +9,8 @@ protrusions, on the Gabriel engine.
 
 The unrelaxed seed ball first relaxes against the wall on a Gabriel
 engine of its own with the lattice kernel opted out (``lattice=False``,
-the JAX example's choice: the gather path, plain torch).  The growth then
+the JAX example's choice: the windowed Gabriel pass, plain torch).  The
+growth then
 runs on the JAX example's Gabriel engine (grid 64, row_cap 64), with the
 lattice's capacity ``CAPACITY`` = 16 where the JAX example leaves the
 engine's 8: on the card that is the Gabriel lattice kernel (K5) with the
@@ -18,10 +19,10 @@ the pour kernel (K2) builds.  The relaxed tissue already holds 8 cells in
 its fullest cube, and the first steps push it to 9 and 10: at capacity 8
 the lattice build drops a cell at step 1 (9 cells cannot fit a cube's 8
 slots, whatever the kernel), which the flags refuse (``chip_smoke.py``
-phase 26 counts the cubes of the same run on the gather path, which
+phase 26 counts the cubes of the same run on the gather form, which
 reads no capacity).  The
-capacity changes no force, and off the card (the gather path) it is not
-read.  The rewiring and the divisions draw from ``torch.Generator``s on
+capacity changes no force, and off the card (the windowed pass) it is
+not read.  The rewiring and the divisions draw from ``torch.Generator``s on
 the state's device; ``step`` takes injected draws (``draw``).
 
 Usage: python3 -m yalla_tpu_torch.examples.growth_w_wall [n_steps]
@@ -86,8 +87,9 @@ def seed_ball(device="cuda"):
 def relax(cells):
     """``relax_steps`` steps of the seed ball against the wall (ref
     :172-174) on a Gabriel engine sized for its density (row_cap 128, the
-    lattice kernel opted out); the relaxed state and its old_v go back
-    into ``cells``."""
+    lattice kernel opted out, so it runs the windowed Gabriel pass, as the
+    JAX example's relaxation does); the relaxed state and its old_v go
+    back into ``cells``."""
     tmp = Solution(Float3, n_max, n_pad=cells.n_pad, device=cells.device,
                    engine=GabrielEngine(grid_size=64, row_cap=128,
                                         lattice=False))

@@ -104,12 +104,14 @@ def bench_engine(cfg):
 def engine_from(engine):
     """The port's ``TileEngine`` / ``GridEngine`` / ``GabrielEngine`` /
     ``LatticeEngine`` with the settings of a JAX engine of the same name
-    (a frozen dataclass).  Settings the port has no counterpart for (the
-    TPU windows of JAX's windowed Gabriel form) are left behind.  A JAX
-    ``LatticeEngine(pallas=False)`` ignores its ``extras_cap``, and the
-    port's lattice engine always honours it, so it maps to
-    ``extras_cap=0``; every other lattice setting (``x_split``,
-    ``route_movers``, ``force_r_max``, the cadence) carries across."""
+    (a frozen dataclass).  The Gabriel engine's windowed form and its
+    window settings (``window_cap``, ``salvage_cap``, ``subgroup``) carry
+    across; a setting the port has no counterpart for (the TPU kernel's
+    ``y_block``) is left behind.  A JAX ``LatticeEngine(pallas=False)``
+    ignores its ``extras_cap``; it maps to the port's engine with
+    ``pallas=True, extras_cap=0``, which computes the same function.
+    Every other lattice setting (``x_split``, ``route_movers``,
+    ``force_r_max``, the cadence) carries across."""
     port = {"TileEngine": TileEngine, "GridEngine": GridEngine,
             "GabrielEngine": GabrielEngine, "LatticeEngine": LatticeEngine}
     name = type(engine).__name__

@@ -13,12 +13,17 @@ Counterpart of ``yalla_tpu/ops/grid_xla.py`` (ref solvers.cuh:345-644):
   nearest candidates (``torch.topk``); more raise
   ``__err_gabriel_candidates``.
 
-This gather form is the port's brute-force Gabriel oracle.  The JAX
-package's ``gabriel_windowed`` exists only to avoid XLA:TPU gathers and is
-not ported; JAX's own tests hold it equal to the gather form.  Both
-passes take the ``(i_offset, i_size)`` window of the sharded cells path
-(``parallel/spmd.py``): the rows ``[i_offset, i_offset + i_size)`` summed
-against the whole population.
+``gabriel_windowed`` is the JAX package's default Gabriel route off the
+lattice kernel: consecutive cube-sorted points share nine windows of the
+sorted order, and the points whose rows do not fit their subgroup's
+windows are salvaged exactly by the gather form (more of them than
+``salvage_cap`` raise ``__err_gabriel_window``).  The window geometry
+decides which points misfit, so the port keeps JAX's: the block size, the
+subgroups, the median anchor and the windows of whole 64-entry segments.
+The gather form is the brute-force oracle of both.  ``grid_pairwise`` and
+``gabriel_pairwise`` take the ``(i_offset, i_size)`` window of the sharded
+cells path (``parallel/spmd.py``): the rows ``[i_offset, i_offset +
+i_size)`` summed against the whole population.
 """
 from __future__ import annotations
 
@@ -29,7 +34,12 @@ import torch
 from .common import cube_ids, evaluate_pairs, out_of_grid_mask
 
 __all__ = ["GridTables", "build_grid", "row_ranges", "grid_pairwise",
-           "gabriel_pairwise", "grid_overflow", "grid_out_of_bounds"]
+           "gabriel_pairwise", "gabriel_windowed", "window_geometry",
+           "grid_overflow", "grid_out_of_bounds"]
+
+# elements of one chunk of subgroups' [subgroups, g, 9, We] candidate
+# tensors in ``gabriel_windowed``
+WINDOW_BLOCK = 1 << 23
 
 
 class GridTables(NamedTuple):
@@ -231,3 +241,184 @@ def gabriel_pairwise(pw_int, pw_friction, X, old_v, n, cube_size, *,
             for ids in _window(n_pad, i_offset, i_size,
                                X.x.device).split(i_block)]
     return _concat(outs)
+
+
+def _block_size(n, want):
+    """The largest ``want / 2**k`` (at most ``n``) that divides ``n``."""
+    b = min(want, n)
+    while n % b:
+        b //= 2
+    return b
+
+
+def window_geometry(n_pad, i_block=64, window_cap=256, subgroup=None):
+    """``(B, g, Wr, We)`` of the windowed pass, as JAX derives them: the
+    block ``B`` of sorted points (``i_block`` halved until it divides
+    ``n_pad``), the subgroup ``g`` of consecutive sorted points sharing
+    nine windows (``subgroup``, lowered until it divides ``B``; ``None``:
+    the whole block), the window ``Wr`` that is centred on the median
+    ranges and the fetched window ``We``: the whole 64-entry segments
+    that cover ``Wr`` entries at any alignment.  ``n_pad % 64 != 0``
+    raises ``ValueError``."""
+    if n_pad % 64:
+        raise ValueError(f"gabriel_windowed needs n_pad % 64 == 0, got "
+                         f"n_pad {n_pad}")
+    B = _block_size(n_pad, i_block)
+    g = B if subgroup is None else max(1, min(subgroup, B))
+    while B % g:
+        g -= 1
+    Wr = min(window_cap, n_pad)
+    We = min((-(-Wr // 64) + 1) * 64, n_pad)
+    return B, g, Wr, We
+
+
+def _median_windows(rs_g, re_g, act_g, n_pad, Wr, We):
+    """Per subgroup and row, the first sorted position of its window,
+    centred on the median range over the subgroup's non-empty entries and
+    rounded down to a 64-entry segment (``[G, 9]``), and which points'
+    rows all fit their windows (``[G, g]``)."""
+    nonempty = act_g[:, :, None] & (rs_g <= re_g)
+    rs_f = torch.where(nonempty, rs_g, n_pad)      # empties sort last
+    re_f = torch.where(nonempty, re_g, n_pad)
+    mid = (torch.clamp(nonempty.sum(dim=1) - 1, min=0) // 2)[:, None]
+    rs_med = torch.sort(rs_f, dim=1).values.gather(1, mid)[:, 0]  # [G, 9]
+    re_med = torch.sort(re_f, dim=1).values.gather(1, mid)[:, 0]
+    w0 = torch.clamp(torch.div(rs_med + re_med - Wr, 2,
+                               rounding_mode="floor"), 0, n_pad - Wr)
+    w0a = torch.clamp(torch.div(w0, 64, rounding_mode="floor") * 64, 0,
+                      max(n_pad - We, 0))
+    lo = w0a[:, None]
+    fit = ((rs_g > re_g) | ((rs_g >= lo) & (re_g <= lo + (We - 1)))) \
+        .all(dim=2) & act_g
+    return w0a, fit
+
+
+def gabriel_windowed(pw_int, pw_friction, X, old_v, n, cube_size, *,
+                     grid_size=50, gabriel_coefficient=0.8, i_block=64,
+                     window_cap=256, max_candidates=32, row_cap=32,
+                     salvage_cap=256, subgroup=None):
+    """Gabriel pairs through shared windows of the cube-sorted order (the
+    JAX package's ``gabriel_windowed``, the same function).
+
+    Each subgroup of ``g`` consecutive sorted points (``window_geometry``)
+    takes, for each of its nine (dz, dy) rows, one window of ``We``
+    sorted entries centred on the subgroup's median row range; a point's
+    candidates are the window entries inside its own row ranges and
+    within ``cube_size``, of which the ``max_candidates`` nearest stay
+    (more raise ``__err_gabriel_candidates``).  The midpoint test runs on
+    that compact set for both j and the blocker k: any blocker lies
+    within ``0.9 * dist_ij < cube_size`` of i, so the complete candidate
+    list holds it.  The force sees the stable ids on both sides.
+
+    A point whose rows do not all fit its subgroup's windows is left out
+    of the windowed pass and salvaged exactly by the gather form
+    (``_gabriel_block``) in a pass of ``salvage_cap`` ids; more misfits
+    than that lose their pairs and raise ``__err_gabriel_window``
+    (on every row).  ``__err_grid_overflow`` is a salvaged point's 3-cube
+    row past ``row_cap``.
+
+    The subgroups run in chunks of about ``WINDOW_BLOCK`` candidate
+    entries, with no value read back to the host.  Only the subgroups
+    that hold an active point are visited (the active points sort first):
+    the rest have no candidates, and their rows are zero, as in JAX's
+    pass over every block."""
+    n_pad = X.x.shape[0]
+    dev = X.x.device
+    B, g, Wr, We = window_geometry(n_pad, i_block, window_cap, subgroup)
+    NC = min(max_candidates, 9 * We)
+    tables = build_grid(X, n, cube_size, grid_size)
+    order = tables.order
+    act = order < n                               # per sorted position
+    n_vis = min(n_pad, max(1, -(-n // g)) * g)    # the rows of the visited
+    rs, re = row_ranges(tables, tables.cid[order[:n_vis]], grid_size)
+    Xs = type(X)(*(a[order] for a in X))          # sorted channels
+    ovs = tuple(a[order] for a in old_v)
+    lanes = torch.arange(We, device=dev)
+    per_sub = g * max(9 * We, NC * NC)
+    outs, misfit = [], []
+    for s in torch.arange(n_vis // g, device=dev).split(
+            max(1, WINDOW_BLOCK // per_sub)):
+        G = s.shape[0]
+        rows = (s[:, None] * g + torch.arange(g, device=dev)).reshape(-1)
+        rs_g, re_g = rs[rows].reshape(G, g, 9), re[rows].reshape(G, g, 9)
+        act_g = act[rows].reshape(G, g)
+        w0a, fit = _median_windows(rs_g, re_g, act_g, n_pad, Wr, We)
+        misfit.append((act_g & ~fit).reshape(-1))
+        wpos = w0a[:, :, None] + lanes                       # [G, 9, We]
+        valid = ((wpos[:, None] >= rs_g[..., None])
+                 & (wpos[:, None] <= re_g[..., None])
+                 & act[wpos][:, None])                       # [G, g, 9, We]
+        R = G * g
+        Xi = type(X)(*(a[rows][:, None] for a in Xs))          # [R, 1]
+
+        def gap(xi, xs):
+            return (xi.reshape(G, g, 1, 1) - xs[wpos][:, None]) ** 2
+        dist = torch.sqrt(gap(Xi.x, Xs.x) + gap(Xi.y, Xs.y)
+                          + gap(Xi.z, Xs.z))                 # [G, g, 9, We]
+        cand = valid & (dist < cube_size) & fit[..., None, None]
+        n_cand = cand.sum(dim=(2, 3)).reshape(R)
+
+        # the NC nearest candidates over the nine windows
+        key = torch.where(cand, dist, torch.inf).reshape(R, 9 * We)
+        sel = torch.topk(-key, NC, dim=1).indices                # [R, NC]
+        jpos = wpos[:, None].expand(G, g, 9, We).reshape(R, 9 * We) \
+            .gather(1, sel)                                  # sorted places
+        cand_s = cand.reshape(R, -1).gather(1, sel)
+        dist_s = dist.reshape(R, -1).gather(1, sel)
+        Xj = type(X)(*(a[jpos] for a in Xs))
+
+        # keep (i, j) unless a candidate k lies inside the sphere on the
+        # i-j midpoint; the self pair has radius 0 and stays
+        def gap2(xi, xj):
+            return (((xi + xj) * 0.5)[:, :, None] - xj[:, None, :]) ** 2
+        d2 = gap2(Xi.x, Xj.x) + gap2(Xi.y, Xj.y) + gap2(Xi.z, Xj.z)
+        radius2 = (0.5 * dist_s * gabriel_coefficient) ** 2
+        blocked = (cand_s[:, None, :] & (d2 < radius2[:, :, None])).any(dim=2)
+        keep = cand_s & ~blocked
+        out = evaluate_pairs(pw_int, pw_friction, Xi, Xj,
+                             tuple(a[jpos] for a in ovs),
+                             order[rows][:, None], order[jpos], keep,
+                             sum_axes=(1,))
+        # a fitting point sees its whole rows inside the windows, so only
+        # the salvage pass can overflow row_cap
+        out[3]["__err_grid_overflow"] = torch.zeros(R, device=dev)
+        out[3]["__err_gabriel_candidates"] = \
+            ((n_cand > NC) & fit.reshape(R)).to(torch.float32)
+        outs.append(out)
+    F, sum_f, sum_v, aux = _concat(outs)
+    ids = order[:n_vis]
+
+    def back(a):
+        full = torch.zeros(n_pad, dtype=a.dtype, device=dev)
+        full[ids] = a
+        return full
+    F = type(F)(*(back(a) for a in F))
+    sum_f, sum_v = back(sum_f), tuple(back(a) for a in sum_v)
+    aux = {k: back(v) for k, v in aux.items()}
+
+    # the misfits, in stable-id order, through a fixed-size gather pass
+    mis = back(torch.cat(misfit))
+    slot = torch.cumsum(mis, 0) - 1
+    fits = mis & (slot < salvage_cap)
+    mis_idx = torch.full((salvage_cap + 1,), n_pad, dtype=torch.int64,
+                         device=dev).scatter_(
+        0, torch.where(fits, slot, salvage_cap),
+        torch.arange(n_pad, device=dev))[:salvage_cap]
+    act_s = mis_idx < n_pad
+    Fs, sum_fs, sum_vs, aux_s = _gabriel_block(
+        pw_int, pw_friction, X, old_v, n, cube_size, tables,
+        ids=torch.clamp(mis_idx, max=n_pad - 1), act=act_s,
+        grid_size=grid_size, row_cap=row_cap,
+        gabriel_coefficient=gabriel_coefficient, max_candidates=NC)
+    tgt = torch.where(act_s, mis_idx, n_pad)
+
+    def put(a, v):
+        return torch.cat([a, a.new_zeros(1)]).index_copy(0, tgt, v)[:n_pad]
+    F = type(F)(*(put(a, v) for a, v in zip(F, Fs)))
+    sum_f = put(sum_f, sum_fs)
+    sum_v = tuple(put(a, v) for a, v in zip(sum_v, sum_vs))
+    aux = {k: put(aux[k], aux_s[k]) for k in aux}
+    # more misfits than the salvage pass holds: the rest lost their pairs
+    aux["__err_gabriel_window"] = (mis.sum() > salvage_cap) \
+        .to(torch.float32).expand(n_pad).clone()
+    return F, sum_f, sum_v, aux

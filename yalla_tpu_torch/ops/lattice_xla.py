@@ -18,7 +18,10 @@ the resident cadence's staleness certificate (``_gap_deficit`` and
 ``state_deficit``) and every cadence of ``lattice_heun_steps``: a fresh
 binning before every pass, the resident cadence (``rebuild_every > 1``),
 rebinning per chunk, per step or per pass, mover routing and generic forces
-in the slot loop.
+in the slot loop.  ``pallas`` keeps the JAX integrator's name: either
+way the pour and the pair pass run through their kernel wrappers, and
+``pallas=False`` (JAX's XLA route) means only that there are no overflow
+extras.
 """
 from __future__ import annotations
 
@@ -608,9 +611,7 @@ def pairwise_on_padded(pw_int, pw_friction, P, Pov, Pocc, Ppid, cube_size, *,
 def _check_cadence(n_steps, rebuild_every, pallas, gen, extras_cap,
                    rebin_m_cap, rebin_per_pass, x_split):
     """Refuse, with ``ValueError``, exactly the combinations the JAX
-    integrator asserts against (so they hold under ``python -O``), and
-    ``pallas=False`` with ``NotImplementedError``: the pair pass always
-    runs through its kernel wrapper."""
+    integrator asserts against (so they hold under ``python -O``)."""
     if rebuild_every < 1 or n_steps % rebuild_every:
         raise ValueError(f"lattice_heun_steps: n_steps {n_steps} is not a "
                          f"multiple of rebuild_every {rebuild_every}")
@@ -620,10 +621,9 @@ def _check_cadence(n_steps, rebuild_every, pallas, gen, extras_cap,
                          "per-pass-exact binning: rebuild_every == 1 with "
                          "rebin_m_cap == 0 (plain rebuilds) or "
                          "rebin_per_pass")
-    if not pallas:
-        raise NotImplementedError("lattice_heun_steps(pallas=False): the "
-                                  "pair pass runs through its kernel "
-                                  "wrapper")
+    if extras_cap and not pallas:
+        raise ValueError("lattice_heun_steps: overflow extras require "
+                         "pallas=True (JAX's XLA route has none)")
     if extras_cap and gen is not None:
         raise ValueError("lattice_heun_steps: generic forces do not "
                          "compose with overflow extras")
@@ -682,8 +682,13 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
     """``n_steps`` Heun steps on the dense lattice, the JAX integrator's
     signature and cadences.  Same integration semantics as
     ``solvers.heun_step`` (COM/point fixes, friction-weighted velocity
-    mixing); the pair pass runs through its kernel wrapper (``pallas``
-    must be True).
+    mixing).  The pour and the pair pass run through their kernel
+    wrappers (``pour_pallas``, ``lattice_pairwise_pallas``: the CUDA
+    kernels on GPU tensors, their plain versions on CPU ones) whatever
+    ``pallas`` says.  ``pallas=False``, the JAX default, is JAX's XLA
+    route, which has no overflow extras: there ``extras_cap`` raises
+    ``ValueError``, where JAX asserts, and the pass computes the same
+    function as JAX's plain stencil pass.
 
     * ``rebuild_every == 1``, ``rebin_m_cap == 0``: a fresh binning before
       every pairwise pass (bit-matching the reference's per-pass

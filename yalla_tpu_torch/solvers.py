@@ -8,7 +8,8 @@ run of steps a Python loop; point counts are Python ints.
 
 Ported: the all-pairs ``TileEngine`` (the plain brute-force oracle and
 the all-pairs kernels K3 and K4), the spatial-hash ``GridEngine``, the
-``GabrielEngine`` (the gather form, and the Gabriel lattice kernel K5),
+``GabrielEngine`` (the windowed and the gather form, and the Gabriel
+lattice kernel K5),
 generic forces (``GenericForce``, ``gen_forces=``), the ``LatticeEngine``
 with every cadence, thin x-cubes and mover routing
 (``LatticeEngine.pairwise`` for ``heun_step``, and
@@ -29,8 +30,8 @@ from .dtypes import Float3, device_of, make_pt
 from .ops.common import (ERR_PREFIX, apply_derived_aux, apply_post_pair,
                          friction_on_background, friction_w_neighbour,
                          grid_dims, mask_tree, out_of_grid_mask)
-from .ops.grid_xla import (build_grid, gabriel_pairwise, grid_overflow,
-                           grid_pairwise)
+from .ops.grid_xla import (build_grid, gabriel_pairwise, gabriel_windowed,
+                           grid_overflow, grid_pairwise)
 from .ops.pairwise_xla import tile_pairwise
 
 __all__ = ["TileEngine", "GridEngine", "GabrielEngine", "LatticeEngine",
@@ -125,19 +126,25 @@ class GabrielEngine:
     kernel takes any grid, so the TPU kernel's shape rules
     (:meth:`_lattice_fits`) do not enter the routing.
 
-    The grid path is the gather form ``gabriel_pairwise`` whatever
-    ``windowed`` says: the JAX package's windowed form avoids XLA:TPU
-    gathers and is not ported (JAX's tests hold the two forms equal), so
-    its window settings have no counterpart here.  ``z_block`` is the TPU
-    kernel's block height, read only by :meth:`_lattice_fits`.  A window
-    ``(i_offset, i_size)`` runs the gather form, as in JAX: K5 sums the
-    whole population only."""
+    Off the lattice, as in JAX, ``windowed`` runs ``gabriel_windowed``
+    (the JAX default): subgroups of ``subgroup`` consecutive cube-sorted
+    points in blocks of ``i_block`` share nine windows of ``window_cap``
+    sorted entries, and up to ``salvage_cap`` points that misfit their
+    windows are salvaged exactly by the gather form (more raise
+    ``__err_gabriel_window``).  ``windowed=False``, and any window
+    ``(i_offset, i_size)`` of the sharded cells path, run the gather form
+    ``gabriel_pairwise``: K5 and the windowed pass sum the whole
+    population only.  ``z_block`` is the TPU kernel's block height, read
+    only by :meth:`_lattice_fits`."""
     grid_size: int = 50
     row_cap: int = 32
     gabriel_coefficient: float = 0.8
     i_block: int = 256
     max_candidates: int = 100
     windowed: bool = True
+    window_cap: int = 64
+    salvage_cap: int = 256
+    subgroup: int | None = 16
     lattice: bool | None = None
     capacity: int = 8
     z_block: int = 2
@@ -160,6 +167,14 @@ class GabrielEngine:
                 grid_size=self.grid_size, capacity=self.capacity,
                 max_candidates=self.max_candidates,
                 gabriel_coefficient=self.gabriel_coefficient)
+        if self.windowed and _whole(i_offset, i_size):
+            return gabriel_windowed(
+                pw_int, pw_friction, X, old_v, n, cube_size,
+                grid_size=self.grid_size,
+                gabriel_coefficient=self.gabriel_coefficient,
+                i_block=self.i_block, window_cap=self.window_cap,
+                max_candidates=self.max_candidates, row_cap=self.row_cap,
+                salvage_cap=self.salvage_cap, subgroup=self.subgroup)
         return gabriel_pairwise(
             pw_int, pw_friction, X, old_v, n, cube_size,
             grid_size=self.grid_size, row_cap=self.row_cap,
@@ -175,17 +190,15 @@ class LatticeEngine:
     The pair pass and the pour run through their kernel wrappers
     (``ops/lattice_pallas.py``, ``ops/lattice_pour.py``): the hand-written
     CUDA kernels for tensors on the GPU, their plain torch versions for
-    tensors on the CPU.  ``pallas`` keeps the JAX engine's name for that
-    path and must stay True (the JAX package's XLA path has no separate
-    port).  So this engine is the JAX ``LatticeEngine(pallas=True)`` on
-    either device: the plain versions on the CPU honour ``extras_cap``
-    and raise ``__err_extras_block`` as the kernels do, where the JAX
-    engine's default ``pallas=False`` ignores ``extras_cap``.  The
-    counterpart of a JAX ``LatticeEngine(pallas=False)`` is this engine
-    with ``extras_cap=0`` (``interop.engine_from`` maps it so), and then
-    both packages raise the same flags on the same states.  ``z_block`` is
-    the JAX kernel's z-block height, which sets the blocks of
-    ``__err_extras_block``.
+    tensors on the CPU, whatever ``pallas`` says.  ``pallas`` keeps the
+    JAX engine's name and its one difference in function: ``pallas=False``
+    (the JAX engine's default, its XLA route) drops ``extras_cap``, as JAX
+    drops it; ``pallas=True`` (the port's default) honours it
+    (``__err_extras_block`` as the kernels raise it).  So a JAX
+    ``LatticeEngine(pallas=False)`` and this engine with ``pallas=False``
+    (or ``extras_cap=0``, as ``interop.engine_from`` maps it) raise the same
+    flags on the same states.  ``z_block`` is the JAX kernel's z-block
+    height, which sets the blocks of ``__err_extras_block``.
 
     As in the JAX engine: ``rebuild_every`` is the binning's cadence (1:
     a fresh binning before every pass, the reference's); ``force_r_max``
@@ -233,15 +246,15 @@ class LatticeEngine:
         from .ops.lattice_pallas import lattice_pairwise_pallas
         from .ops.lattice_xla import (_merge_extras, lattice_build,
                                       slot_to_stable)
+        extras = self.extras_cap if self.pallas else 0
         lay = lattice_build(X, old_v, n, cube_size, self.grid_size,
-                            self.capacity, self.extras_cap,
-                            x_split=self.x_split)
+                            self.capacity, extras, x_split=self.x_split)
         outs = lattice_pairwise_pallas(
             pw_int, pw_friction, lay, n, cube_size, grid_size=self.grid_size,
             capacity=self.capacity, z_block=self.z_block,
             extras_block_cap=self.extras_block_cap, x_split=self.x_split)
         F, sum_f, sum_v, aux = (slot_to_stable(lay, t) for t in outs[:4])
-        if self.extras_cap:
+        if extras:
             Fe, sum_fe, sum_ve, aux_e = outs[4]
 
             def merge(a, e):
