@@ -225,11 +225,15 @@ own line:
     settled 500k state, a build every 2 steps, ``ZSLAB_STEPS`` steps:
     every flag 0, K1 twice a step on a rank, positions within atol 5e-5
     of the single-process ``lattice_heun_steps``; ms a step beside the
-    transport's;
+    transport's; then the same run with ``pallas=False`` (JAX's default,
+    which selects nothing on the slab path): every flag 0, K1 twice a
+    step on a rank, every field equal to the ``pallas=True`` run's, its
+    ms a step;
 33. the cells-axis step on two ranks: ``make_sharded_step`` on the 5k
     sorting state with ``TileEngine`` (the windowed plain pass) against
     the single-process steps, every field within ``isclose``;
-34. ``dryrun_multichip(2)`` and ``dryrun_multichip(4)`` on the card;
+34. ``dryrun_multichip(2)`` and ``dryrun_multichip(4)`` on the card, K1
+    launched in each z-slab frame (the third with ``pallas=False``);
 35. the windowed Gabriel pass (``ops/grid_xla.gabriel_windowed``, plain
     torch on the card): (a) one pass at the 100k half-space tissue
     (``GABRIEL_100K``'s grid and NC, the JAX engine's window settings)
@@ -2806,8 +2810,11 @@ def zslab_path(dev, C):
     launched twice a step on the rank, positions within atol 5e-5
     (``tests/test_parallel.py``'s) of the single-process
     ``lattice_heun_steps`` at the same cadence and capacity on the card;
-    ms a step beside the transport's seconds.  Returns K1's launches on
-    the rank."""
+    ms a step beside the transport's seconds.  Then the same run with
+    ``pallas=False`` (JAX's default, which selects nothing on the slab
+    path): every flag 0, K1 twice a step on the rank, every field equal
+    to the ``pallas=True`` run's (max abs err 0), its ms a step.
+    Returns K1's launches on the rank in the ``pallas=True`` run."""
     import numpy as np
     import torch
     from yalla_tpu_torch.interop import load_settled, pt_to_numpy
@@ -2818,16 +2825,28 @@ def zslab_path(dev, C):
     from yalla_tpu_torch.parallel._comm import spawn
     p = B.Params()
     X, old_v = load_settled(SETTLED, B.Cell, dev)
-    args = (N_CELLS, p.dt, 1.0, 64, C, 2, ZSLAB_STEPS, 2, True)
-    got = spawn(dryrun.run_slab, 2, "branching", pt_to_numpy(X),
-                pt_to_numpy(old_v), *args, warmup=True, backend="gloo",
-                device="cuda")
-    if any(got["flags"].values()):
-        raise AssertionError(f"z-slab path flags set: {got['flags']}")
-    if got["lattice_pair_launches"] != 2 * ZSLAB_STEPS:
-        raise AssertionError(f"z-slab path: K1 launched "
-                             f"{got['lattice_pair_launches']} times in "
-                             f"{ZSLAB_STEPS} steps on a rank")
+    runs = {}
+    for pallas in (True, False):
+        args = (N_CELLS, p.dt, 1.0, 64, C, 2, ZSLAB_STEPS, 2, pallas)
+        got = spawn(dryrun.run_slab, 2, "branching", pt_to_numpy(X),
+                    pt_to_numpy(old_v), *args, warmup=True, backend="gloo",
+                    device="cuda")
+        if any(got["flags"].values()):
+            raise AssertionError(f"z-slab path (pallas={pallas}) flags "
+                                 f"set: {got['flags']}")
+        if got["lattice_pair_launches"] != 2 * ZSLAB_STEPS:
+            raise AssertionError(f"z-slab path (pallas={pallas}): K1 "
+                                 f"launched {got['lattice_pair_launches']} "
+                                 f"times in {ZSLAB_STEPS} steps on a rank")
+        runs[pallas] = got
+    got = runs[True]
+    # pallas=False selects nothing on the slab path: the same kernels on
+    # the same inputs, so every field equal to the bit
+    same = max(float(np.abs(runs[False][k][f] - got[k][f]).max())
+               for k in ("X", "old_v") for f in got[k])
+    if same != 0.0:
+        raise AssertionError(f"z-slab path: pallas=False differs from "
+                             f"pallas=True by {same:g}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     Xs, _, aux = lattice_heun_steps(
@@ -2856,6 +2875,12 @@ def zslab_path(dev, C):
           f"({got['transport_calls'] / ZSLAB_STEPS:.1f} collectives, "
           f"{got['transport_bytes'] / ZSLAB_STEPS / 1e6:.1f} MB a step); "
           f"the single-process run {single_ms:.3f} ms/step")
+    off = runs[False]
+    print(f"z-slab path pallas=False: flags {off['flags']}, K1 launched "
+          f"{off['lattice_pair_launches']} times on rank 0, every field "
+          f"equal to pallas=True's (max abs err {same:g}); "
+          f"{off['seconds'] * 1e3 / ZSLAB_STEPS:.3f} ms/step on rank 0 "
+          f"(pallas=True {ms:.3f})")
     return got["lattice_pair_launches"]
 
 
@@ -2902,7 +2927,9 @@ def cells_axis_path(dev):
 
 def dryruns(dev):
     """Phase 34: ``dryrun_multichip(2)`` and ``dryrun_multichip(4)`` on
-    the card (its asserts; rank 0 prints its two lines)."""
+    the card (its asserts, K1 launched twice a step in each z-slab frame,
+    the last one's ``pallas=False`` included; rank 0 prints its two
+    lines)."""
     from yalla_tpu_torch.parallel.dryrun import dryrun_multichip
     for d in (2, 4):
         t0 = time.perf_counter()

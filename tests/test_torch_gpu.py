@@ -373,6 +373,38 @@ def test_pair_kernel_zhalo_matches_plain(cuda, functor, case):
             assert torch.equal(a, b[sl]), k
 
 
+def test_z_slab_pallas_false_runs_the_kernel(cuda):
+    """``lattice_sharded_heun_steps`` on a ring of one on the card (4
+    steps, a build every 2, 4,913 branching cells, grid 16, C 8):
+    ``pallas=False`` (JAX's default) launches K1 with ``z_halo`` twice a
+    step, as ``pallas=True`` does, and the positions, velocities and
+    flags of the two are equal bit for bit."""
+    from yalla_tpu_torch.parallel._comm import single
+    from yalla_tpu_torch.parallel.lattice_spmd import \
+        lattice_sharded_heun_steps
+    n, n_pad = 4913, 4992
+    h, ov = _branching_cells(n, n_pad, 0.6, 17, seed=5)
+    X = B.Cell(*(torch.as_tensor(h[f], device=cuda) for f in B.Cell._fields))
+    ovt = Float3(*(torch.as_tensor(ov[f], device=cuda) for f in "xyz"))
+    p = B.Params()
+    out, launches = {}, {}
+    for pallas in (False, True):
+        before = lattice_pairwise_pallas.launches
+        out[pallas] = lattice_sharded_heun_steps(
+            single(cuda), 4, 2, B.make_force(p), friction_w_neighbour, "com",
+            16, 8, 2, X, ovt, n, p.dt, 1.0, 0, B.precompute, pallas=pallas)
+        launches[pallas] = lattice_pairwise_pallas.launches - before
+    assert launches == {False: 8, True: 8}
+    (Xf, ovf, auxf), (Xt, ovt_, auxt) = out[False], out[True]
+    assert not any(bool(v.any()) for k, v in auxt.items()
+                   if k.startswith("__err_"))
+    for a, b in zip([*Xf, *ovf], [*Xt, *ovt_]):
+        assert torch.equal(a, b)
+    assert auxf.keys() == auxt.keys()
+    for k in auxt:
+        assert torch.equal(auxf[k], auxt[k]), k
+
+
 def test_pair_kernel_refuses_force_without_functor(cuda):
     lay = _layout(cuda)
 

@@ -175,11 +175,12 @@ def slab_reference():
 @pytest.mark.parametrize("pallas,n_ranks", [(False, 4), (False, 2),
                                             (True, 2), (True, 4)])
 def test_port_z_slab_matches_jax(slab_reference, pallas, n_ranks):
-    """``test_lattice_z_slab_sharded_matches_single`` (``pallas=False``:
-    ``pairwise_on_padded`` on the exchanged planes) and
-    ``test_lattice_z_slab_sharded_pallas_matches_single`` (``pallas=True``:
-    K1's plain version with ``z_halo``): the port's z-slab run against
-    JAX's single-device run, cells in every slab."""
+    """``test_lattice_z_slab_sharded_matches_single`` (``pallas=False``)
+    and ``test_lattice_z_slab_sharded_pallas_matches_single``
+    (``pallas=True``): the port's z-slab run against JAX's single-device
+    run, cells in every slab.  Both reach K1's wrapper, which on CPU
+    tensors runs its plain version with ``z_halo``
+    (``pairwise_on_padded`` on the exchanged planes)."""
     n, n_pad, pos, Xs, flags = slab_reference
     got = spawn(dryrun.run_slab, n_ranks, "relu", fields(pos),
                 zeros3(n_pad), n, 0.1, 1.0, GS, C, ZB, 4, 2, pallas,
@@ -190,6 +191,55 @@ def test_port_z_slab_matches_jax(slab_reference, pallas, n_ranks):
     assert_flags(got["flags"], flags)
     cz = np.clip(np.floor(pos[:n, 2]) + GS // 2, 0, GS - 1)
     assert len(np.unique(cz // (GS // n_ranks))) == n_ranks
+
+
+def test_port_z_slab_pallas_false_reaches_the_kernel_wrapper(
+        slab_reference, monkeypatch):
+    """On a ring of one rank, in this process (so that the spy sees the
+    calls): ``lattice_sharded_heun_steps(..., pallas=False)`` calls
+    ``lattice_pairwise_pallas`` once a pass, 2 a step, and
+    ``ShardedLatticeEngine(pallas=False).pairwise`` once a call, each
+    with ``z_halo``; their results equal ``pallas=True``'s bit for bit,
+    and the run's positions are within 5e-5 of JAX's single-device run,
+    its shared flags equal."""
+    from yalla_tpu_torch.inits import relu_force
+    from yalla_tpu_torch.parallel import lattice_spmd
+    from yalla_tpu_torch.parallel._comm import single
+    n, n_pad, pos, Xs, flags = slab_reference
+    calls = []
+    real = lattice_spmd.lattice_pairwise_pallas
+
+    def spy(*args, **kw):
+        calls.append(kw["z_halo"] is not None)
+        return real(*args, **kw)
+    monkeypatch.setattr(lattice_spmd, "lattice_pairwise_pallas", spy)
+    mesh = single("cpu")
+    X = Float3(*(torch.as_tensor(pos[:, k]) for k in range(3)))
+    ov = Float3.zeros(n_pad, device="cpu")
+    steps, passes = {}, {}
+    for pallas in (False, True):
+        del calls[:]
+        steps[pallas] = lattice_spmd.lattice_sharded_heun_steps(
+            mesh, 4, 2, relu_force, friction_w_neighbour, "com", GS, C, ZB,
+            X, ov, n, 0.1, 1.0, 0, pallas=pallas)
+        assert calls == [True] * 8, pallas
+        del calls[:]
+        eng = lattice_spmd.ShardedLatticeEngine(mesh, GS, C, ZB, pallas)
+        passes[pallas] = eng.pairwise(relu_force, friction_w_neighbour, X,
+                                      ov, n, 1.0)
+        assert calls == [True], pallas
+    (Xf, ovf, auxf), (Xt, ovt, auxt) = steps[False], steps[True]
+    for a, b in zip([*Xf, *ovf], [*Xt, *ovt]):
+        assert torch.equal(a, b)
+    assert auxf.keys() == auxt.keys()
+    assert all(torch.equal(auxf[k], auxt[k]) for k in auxt)
+    (Ff, sff, svf, axf), (Ft, sft, svt, axt) = passes[False], passes[True]
+    for a, b in zip([*Ff, sff, *svf, *axf.values()],
+                    [*Ft, sft, *svt, *axt.values()]):
+        assert torch.equal(a, b)
+    assert_positions({f: a.numpy() for f, a in zip("xyz", Xf)}, Xs, n, 5e-5)
+    assert_flags({k: float(v.float().max()) for k, v in auxf.items()
+                  if k.startswith("__err_")}, flags)
 
 
 def _links(rng, n, seed):

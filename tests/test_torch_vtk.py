@@ -135,6 +135,29 @@ def test_native_serializer_is_built_and_used(tmp_path):
     assert list(_native.parse_doubles("1.5 2\n-3e2", 8)) == [1.5, 2.0, -300.0]
 
 
+def test_native_parse_floats_matches_jax(monkeypatch):
+    """``tests/test_utils.py::test_native_io_layer``'s parse: the port's
+    ``parse_floats`` on the text of its own ``format_rows`` equals the JAX
+    package's ``parse_floats`` on the same text, exactly (f32, ``max_count``
+    cutting both alike), and gives the rows back within rtol 1e-6; None
+    without the library."""
+    import yalla_tpu._native as j_native
+    if _native.get_lib() is None or j_native.get_lib() is None:
+        pytest.skip("native toolchain unavailable")
+    arr = np.random.default_rng(3).random((100, 3)).astype(np.float32) \
+        * 100 - 50
+    text = _native.format_rows(arr)
+    got = _native.parse_floats(text, 300)
+    want = j_native.parse_floats(bytes(text).decode(), 300)
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+    assert np.allclose(got.reshape(100, 3), arr, rtol=1e-6)
+    assert np.array_equal(_native.parse_floats(bytes(text).decode(), 7),
+                          want[:7])
+    monkeypatch.setattr(_native, "_lib", None)
+    monkeypatch.setattr(_native, "_tried", True)
+    assert _native.parse_floats(text, 300) is None
+
+
 def test_numpy_fallback_without_the_native_library(tmp_path, monkeypatch):
     """Without a compiler every consumer falls back to numpy formatting
     and parsing, and the round trip holds."""

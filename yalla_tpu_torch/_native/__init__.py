@@ -75,6 +75,8 @@ def get_lib():
         lib.yt_format_lines.restype = c_long
         lib.yt_format_lines.argtypes = [ip, ip, c_long, ctypes.c_char_p,
                                         c_long]
+        lib.yt_parse_floats.restype = c_long
+        lib.yt_parse_floats.argtypes = [ctypes.c_char_p, c_long, fp, c_long]
         lib.yt_parse_doubles.restype = c_long
         lib.yt_parse_doubles.argtypes = [
             ctypes.c_char_p, c_long, ctypes.POINTER(ctypes.c_double), c_long]
@@ -145,6 +147,19 @@ def format_lines(a, b):
     buf = ctypes.create_string_buffer(cap)
     return _text(buf, lib.yt_format_lines(_iptr(aa), _iptr(bb), len(aa), buf,
                                           cap))
+
+
+def parse_floats(text, max_count):
+    """Up to ``max_count`` whitespace-separated numbers of ``text`` (a str
+    or bytes-like, as the formatters return) as f32, or None if
+    unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    raw = text.encode() if isinstance(text, str) else bytes(text)
+    out = np.empty(max_count, np.float32)
+    k = lib.yt_parse_floats(raw, len(raw), _fptr(out), max_count)
+    return out[:k]
 
 
 def parse_doubles(text, max_count):

@@ -97,6 +97,26 @@ long yt_format_lines(const int32_t* a, const int32_t* b, long n, char* out,
     return p - out;
 }
 
+// Parse up to `cap` whitespace-separated floats; returns the count
+// parsed.
+long yt_parse_floats(const char* text, long len, float* out, long cap)
+{
+    const char* p = text;
+    const char* end = text + len;
+    long k = 0;
+    while (p < end && k < cap) {
+        while (p < end && (*p == ' ' || *p == '\n' || *p == '\r' ||
+                           *p == '\t')) ++p;
+        if (p >= end) break;
+        float v;
+        auto res = std::from_chars(p, end, v);
+        if (res.ec != std::errc()) break;
+        out[k++] = v;
+        p = res.ptr;
+    }
+    return k;
+}
+
 // Parse up to `cap` whitespace-separated numbers as doubles (int32
 // properties must round-trip exactly); returns the count parsed.
 long yt_parse_doubles(const char* text, long len, double* out, long cap)

@@ -11,9 +11,12 @@
    the state stays the same on every rank;
 2. two fused frames, each a division pass and
    ``lattice_sharded_heun_steps(pallas=True)`` (K1 with ``z_halo`` on the
-   card, its plain version on the CPU) at grid 16, C 8;
+   card, its plain version on the CPU) at grid 16, C 8, then a third with
+   ``pallas=False`` (JAX's default, which runs the same pass: K1 on the
+   card too);
 
-and asserts what the JAX function asserts.  Rank 0 prints its two lines.
+and asserts what the JAX function asserts, and on the card that every
+frame launched K1 twice a step.  Rank 0 prints its two lines.
 
 ``run_cells``, ``run_slab`` and ``run_engine`` run the three sharded paths
 on a state given as numpy, for the tests and for ``chip_smoke.py``: a rank
@@ -228,8 +231,9 @@ def _dryrun_rank(mesh):
     lines = [f"dryrun_multichip: cells-axis step OK on {D} devices "
              f"(n={n}, n_pad={n_pad})"]
 
-    # the z-slab lattice: two frames of a division pass and two resident
-    # steps on the ring, K1 with z_halo
+    # the z-slab lattice: frames of a division pass and two resident steps
+    # on the ring, K1 with z_halo; the third frame with pallas=False, which
+    # selects nothing on the slab path
     gs, C = 16, 8
     gz = gs // D
     assert gz >= 1, f"grid_size {gs} too small for {D} devices"
@@ -238,21 +242,22 @@ def _dryrun_rank(mesh):
     X, old_v, n = state.X, state.old_v, state.n
     props = (state.epi_nbs, state.mes_nbs)
     g = torch.Generator(device=dev).manual_seed(4)
-    launches = lattice_pairwise_pallas.launches
     drops = []
-    for _ in range(2):
+    for pallas in (True, True, False):
         X, old_v, n, props, _ = proliferate(want, child, X, old_v, n, g,
                                             props=props)
+        launches = lattice_pairwise_pallas.launches
         X, old_v, aux = lattice_sharded_heun_steps(
             mesh, 2, 2, force, friction_w_neighbour, "com", gs, C, zb, X,
-            old_v, n, p.dt, p.r_max, 0, polarity_precompute3, pallas=True)
+            old_v, n, p.dt, p.r_max, 0, polarity_precompute3, pallas=pallas)
+        if dev.type == "cuda":
+            assert lattice_pairwise_pallas.launches - launches == 4, \
+                f"a pallas={pallas} z-slab frame did not run the lattice " \
+                f"pair kernel twice a step"
         props = (aux["epi_nbs"], aux["mes_nbs"])
         drops.append(int(aux["__err_lattice_dropped"]))
     assert n >= n_pad // 2, "z-slab dry run lost cells"
     assert max(drops) == 0, "lattice capacity overflow"
-    if dev.type == "cuda":
-        assert lattice_pairwise_pallas.launches - launches == 8, \
-            "the z-slab frames did not run the lattice pair kernel"
     lines.append(f"dryrun_multichip: OK on {D} devices (z-slab lattice + "
                  f"in-scan proliferation, n={n}, n_pad={n_pad})")
     if mesh.rank == 0:

@@ -9,13 +9,15 @@ so a rank's slab is one contiguous run of ``n_local`` slots.
   rank keeps its slab of every slot channel.
 * The pair pass runs on the slab with one plane of halo exchanged with
   each z-neighbour (``_comm.plane_exchange``; zeros, so no occupancy, at
-  the ring's ends): through the lattice kernel K1 with its ``z_halo``
-  (``pallas=True``: ``ops/lattice_pallas.py``, the CUDA kernel on the
-  card, its plain version on the CPU), or through the plain
-  ``pairwise_on_padded`` on channels padded with the exchanged planes
-  (``pallas=False``).  Both exist in the JAX package here.  The default,
-  ``pallas=None``, is the kernel on the card and the plain pass on the
-  CPU, as for the single-device engines.
+  the ring's ends), always through the lattice kernel's wrapper with its
+  ``z_halo`` (``ops/lattice_pallas.lattice_pairwise_pallas``: K1 on CUDA
+  tensors; on CPU tensors its plain version, ``pairwise_on_padded`` on
+  channels padded with the exchanged planes).  ``pallas`` keeps the JAX
+  package's name, where it picks K1 (``True``) or the XLA stencil pass
+  (``False``, JAX's default); the two compute the same function, a slab
+  carries no overflow extras, so here ``pallas`` selects nothing.  On
+  the card a force with no CUDA functor raises (``pair_functor``'s
+  message names the plain path on CPU tensors); there is no fallback.
 * The integration is local; the COM fix divides a sum over the ranks by
   the occupancy summed over the ranks; the in-loop failure flags reduce
   with a maximum over them.
@@ -29,8 +31,7 @@ import torch
 from ..dtypes import Float3
 from ..ops.common import (ERR_PREFIX, apply_derived_aux, apply_post_pair,
                           grid_dims, mask_tree)
-from ..ops.lattice_pallas import (lattice_pairwise_pallas,
-                                  lattice_pairwise_plain)
+from ..ops.lattice_pallas import lattice_pairwise_pallas
 from ..ops.lattice_xla import (LatticeLayout, lattice_build,
                                lattice_unbuild, slot_to_stable)
 from ._comm import plane_exchange, pmax, psum
@@ -59,16 +60,11 @@ def _slab_dims(mesh, grid_size, z_block):
 
 
 def _local_pairwise(mesh, pw_int, pw_friction, Taug, Tov, pid, n, cube_size,
-                    *, dims, C, z_block, n_pad, pallas):
+                    *, dims, C, z_block, n_pad):
     """The pair pass of this rank's slab, one exchange of its edge planes
     (channels, old_v, occupancy) with its z-neighbours; sums ``[n_local]``
-    in slot order.  ``pallas``: K1 with ``z_halo``
-    (``lattice_pairwise_pallas``: the kernel on CUDA tensors, its plain
-    version on the CPU); ``False``: the plain version on every device
-    (``pairwise_on_padded`` on the slab with the exchanged planes);
-    ``None``: K1 on CUDA tensors, the plain version on the CPU."""
-    if pallas is None:
-        pallas = pid.device.type == "cuda"
+    in slot order.  K1 with ``z_halo`` (``lattice_pairwise_pallas``: the
+    kernel on CUDA tensors, its plain version on CPU tensors)."""
     gx, gy, gz = dims
     nT = len(Taug)
     chans = list(Taug) + list(Tov) + [(pid < n_pad).to(torch.float32)]
@@ -76,10 +72,10 @@ def _local_pairwise(mesh, pw_int, pw_friction, Taug, Tov, pid, n, cube_size,
     lo, hi = plane_exchange(mesh, A[:, 0].contiguous(), A[:, -1].contiguous())
     z_halo = (list(lo[:nT]), list(hi[:nT]), list(lo[nT:nT + 3]),
               list(hi[nT:nT + 3]), lo[nT + 3] > 0.5, hi[nT + 3] > 0.5)
-    pass_ = lattice_pairwise_pallas if pallas else lattice_pairwise_plain
-    return pass_(pw_int, pw_friction, _shim(Taug, Tov, pid), n, cube_size,
-                 grid_size=dims, capacity=C, z_block=z_block, grid_z=gz,
-                 n_pad=n_pad, z_halo=z_halo)
+    return lattice_pairwise_pallas(
+        pw_int, pw_friction, _shim(Taug, Tov, pid), n, cube_size,
+        grid_size=dims, capacity=C, z_block=z_block, grid_z=gz, n_pad=n_pad,
+        z_halo=z_halo)
 
 
 def _shim(T, Tov, pid):
@@ -143,9 +139,11 @@ class ShardedLatticeEngine:
     the build runs on it, the pass on the rank's slab with exchanged
     halos, and the sums return to every rank in stable-id order.  Unlike
     :func:`lattice_sharded_heun_steps` it rebuilds per pass, the
-    reference's own cadence (solvers.cuh:494).  ``pallas`` selects K1
-    with ``z_halo`` over the plain ``pairwise_on_padded``; ``None`` (the
-    default) is K1 on CUDA tensors and the plain pass on the CPU."""
+    reference's own cadence (solvers.cuh:494).  The pass is K1 with
+    ``z_halo`` on CUDA tensors and its plain version on CPU tensors;
+    ``pallas`` is the JAX engine's, and selects nothing here (the module
+    docstring says why), so a force with no CUDA functor raises on the
+    card whatever it says."""
     mesh: object
     grid_size: int | tuple = 64
     capacity: int = 8
@@ -165,8 +163,7 @@ class ShardedLatticeEngine:
         T, Tov, pid = _slab(lay, mesh.rank * n_local, n_local)
         F, sum_f, sum_v, aux = _gather_sums(mesh, *_local_pairwise(
             mesh, pw_int, pw_friction, T, Tov, pid, n, cube_size,
-            dims=dims, C=C, z_block=self.z_block, n_pad=n_pad,
-            pallas=self.pallas))
+            dims=dims, C=C, z_block=self.z_block, n_pad=n_pad))
         back = lambda t: slot_to_stable(lay, t)  # noqa: E731
         aux = back(aux)
         aux["__err_lattice_dropped"] = lay.n_dropped.to(torch.float32)
@@ -185,8 +182,9 @@ def lattice_sharded_heun_steps(mesh, n_steps, rebuild_every,
     (COM and point fixes, friction mixing, the in-loop failure flags).
     ``X`` and ``old_v`` are the full stable-order state, the same on every
     rank, and so are the results; ``n`` is a Python int.  ``pallas`` as
-    :class:`ShardedLatticeEngine`'s: by default K1 with ``z_halo`` on
-    CUDA tensors, the plain pass on the CPU.
+    :class:`ShardedLatticeEngine`'s: JAX's name, which selects nothing
+    here; the pass is K1 with ``z_halo`` on CUDA tensors and its plain
+    version on CPU tensors.
 
     Each chunk of ``rebuild_every`` steps bins the state once (the whole
     lattice on every rank), runs the chunk on the rank's slab, then
@@ -241,7 +239,7 @@ def lattice_sharded_heun_steps(mesh, n_steps, rebuild_every,
             Taug = augment(T, n, precompute)
             F, sum_f, sum_v, aux = _local_pairwise(
                 mesh, pw_int, pw_friction, Taug, Tov, pid, n, cube_size,
-                dims=dims, C=C, z_block=z_block, n_pad=n_pad, pallas=pallas)
+                dims=dims, C=C, z_block=z_block, n_pad=n_pad)
             aux = apply_derived_aux(pw_int, aux, sum_f)
             F, aux = apply_post_pair(pw_int, F, aux, Taug)
             F = truncate_aug(F, type(T))
