@@ -689,18 +689,17 @@ def solution(path, n, engine, device, cube_size, Cell=None, n_pad=None):
     return sol
 
 
-def kernel_wrappers():
-    """Each ported kernel's wrapper, whose ``launches`` counts its kernel
-    launches, by the kernel's name in the JSON record."""
-    from yalla_tpu_torch.ops.central_mxu import central_pairwise_mxu
-    from yalla_tpu_torch.ops.gabriel_pallas import gabriel_lattice_pallas
-    from yalla_tpu_torch.ops.lattice_pallas import lattice_pairwise_pallas
-    from yalla_tpu_torch.ops.lattice_pour import pour_pallas
-    from yalla_tpu_torch.ops.tile_pallas import tile_pairwise_pallas
-    return {"pour": pour_pallas, "lattice_pair": lattice_pairwise_pallas,
-            "central_pair": central_pairwise_mxu,
-            "tile_pair": tile_pairwise_pallas,
-            "gabriel_pair": gabriel_lattice_pallas}
+KERNELS = ("pour", "lattice_pair", "central_pair", "tile_pair",
+           "gabriel_pair")
+
+
+def launch_counts():
+    """Each ported kernel's launches since :func:`reset_launches`, by the
+    kernel's name in the JSON record (the ``kernels.<name>`` counters of
+    ``yalla_tpu_torch.utils.profiling``; :func:`main` runs traced)."""
+    from yalla_tpu_torch.utils import profiling
+    c = profiling.counters()
+    return {k: c.get(f"kernels.{k}", 0) for k in KERNELS}
 
 
 def run_slice(tag, sol, n_cells, n_steps, dt, force, expect,
@@ -712,15 +711,13 @@ def run_slice(tag, sol, n_cells, n_steps, dt, force, expect,
     import numpy as np
     import torch
     sol.take_steps(1, dt, force, precompute=precompute)   # warm-up
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     aux = sol.take_steps(n_steps, dt, force, precompute=precompute)
     torch.cuda.synchronize()
     dt_s = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = launch_counts()
     flags = {k: float(v.max()) for k, v in aux.items()
              if k.startswith("__err_")}
     if any(flags.values()):
@@ -1110,16 +1107,14 @@ def growth_w_wall_slice(dev):
                                device=dev).engine, GabrielEngine)
     sol, step, _ = gabriel_run(dev, NG_CELLS, engine, 1, seed=None,
                                links_seed=15)          # one warm-up step
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(NG):
         aux = step()     # take_step raises on any __err_ flag
     torch.cuda.synchronize()
     dt_s = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = launch_counts()
     flags = {k: float(v.max()) for k, v in aux.items()
              if k.startswith("__err_")}
     if any(flags.values()):
@@ -1143,12 +1138,9 @@ def growth_w_wall_slice(dev):
 
 
 def reset_launches():
-    """Set every kernel wrapper's launch count to 0; returns the
-    wrappers."""
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
-    return wrappers
+    """Set every kernel's launch count to 0."""
+    from yalla_tpu_torch.utils import profiling
+    profiling.clear()
 
 
 def relax_kernel_check(dev):
@@ -1216,15 +1208,15 @@ def lattice_engine_gpu_vs_cpu(dev):
                               device=dev)
     force = B.make_force(p)
     outs = {}
-    wrappers = reset_launches()
+    reset_launches()
     for d in ("cpu", dev):
         X, ov = load_settled(SETTLED_SMALL, B.Cell, d)
         outs[d] = flatten(engine.pairwise(
             force, friction_w_neighbour, augment(X, N_SMALL, B.precompute),
             ov, N_SMALL, p.r_max), "", N_SMALL)
     torch.cuda.synchronize()
-    if (wrappers["pour"].launches, wrappers["lattice_pair"].launches) \
-            != (1, 1):
+    launched = launch_counts()
+    if (launched["pour"], launched["lattice_pair"]) != (1, 1):
         raise AssertionError("LatticeEngine.pairwise on the card did not "
                              "launch K2 and K1 once each")
     flags = {k for k in outs[dev] if k.startswith("__err_")}
@@ -1250,13 +1242,13 @@ def flagship_from_seed(dev):
     from yalla_tpu_torch.vtkio import Vtk_input, Vtk_output
     p = B.Params()
     tier = B.next_tier(N_SEEDS, N_CELLS)
-    wrappers = reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     state, cells, engine = B.init_state(N_SEEDS, tier, p, seed=42,
                                         device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    init_launches = {k: w.launches for k, w in wrappers.items()}
+    init_launches = launch_counts()
     if init_launches["tile_pair"] < 2000 or init_launches["pour"] != 2 \
             or init_launches["lattice_pair"] != 2:
         raise AssertionError(f"init_state launches: {init_launches}")
@@ -1292,7 +1284,7 @@ def flagship_from_seed(dev):
         back = type(cells)(B.Cell, tier, engine=engine, device="cpu")
         last.read_positions(back)
         last.read_field(back, "u")
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = launch_counts()
     n = state.n
     if not all(b >= a for a, b in zip(counts, counts[1:])) or n <= N_SEEDS:
         raise AssertionError(f"flagship from a seed: counts {counts}")
@@ -1426,7 +1418,7 @@ def flagship_full_width(dev):
         with Vtk_output("sync", tmp, verbose=False) as output:
             sync_write_s = write(output, state)
 
-    wrappers = reset_launches()
+    reset_launches()
     counts, resized = [state.n], 0
     write_s = 0.0
     with tempfile.TemporaryDirectory() as tmp:
@@ -1459,7 +1451,7 @@ def flagship_full_width(dev):
             drain_s = time.perf_counter() - d0
         last = Vtk_input(f"{tmp}/branching_{FULL_FRAMES - 1}.vtk")
         size_mb = sum(f.stat().st_size for f in Path(tmp).iterdir()) / 1e6
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = launch_counts()
     if last.n_points != counts[-2]:
         raise AssertionError(f"the last VTK file holds {last.n_points} "
                              f"points, its state {counts[-2]}")
@@ -1833,14 +1825,14 @@ def iwg_full_width(dev):
     n_0 = sol.d_n
     state = m.start(sol)
     m.step(sol, state)                                  # warm-up
-    wrappers = reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(IWG_STEPS):
         m.step(sol, state)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / IWG_STEPS
-    counts = {k: w.launches for k, w in wrappers.items()}
+    counts = launch_counts()
     want = {k: 2 * IWG_STEPS if k in ("pour", "lattice_pair") else 0
             for k in counts}
     if counts != want:
@@ -1944,13 +1936,12 @@ def steps_gpu_vs_cpu(dev, name, n_steps, t0, n_compare, per_step, g):
     states = {d: m.start(s, n_steps) for d, s in sols.items()}
     for state in states.values():
         state.t = t0
-    wrappers = kernel_wrappers()
-    before = {k: w.launches for k, w in wrappers.items()}
+    before = launch_counts()
     for _ in range(n_compare):
         draws = m.draw(sols["cpu"], states["cpu"], g)
         for d, s in sols.items():
             m.step(s, states[d], to_device(draws, d))
-    counts = {k: w.launches - before[k] for k, w in wrappers.items()}
+    counts = {k: v - before[k] for k, v in launch_counts().items()}
     want = {k: per_step.get(k, 0) * n_compare for k in counts}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts} in {n_compare} "
@@ -2185,13 +2176,13 @@ def more_example_runs(dev):
         sol, setup_s = example_setup(name, dev)
         with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
                 contextlib.redirect_stdout(io.StringIO()):
-            wrappers = reset_launches()
+            reset_launches()
             torch.cuda.synchronize()
             t_start = time.perf_counter()
             steps = m.run(sol, n_steps).t
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t_start
-            counts = {k: w.launches for k, w in wrappers.items()}
+            counts = launch_counts()
             files = len(list(Path("output").glob("*.vtk")))
         want = {k: per_step.get(k, 0) * steps for k in counts}
         if counts != want or not files:
@@ -2325,13 +2316,13 @@ def example_runs(dev, states):
         m.n_time_steps = EX_STEPS - 1     # run takes n_time_steps + 1
         with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
                 contextlib.redirect_stdout(io.StringIO()):
-            wrappers = reset_launches()
+            reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             m.run(sol)
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
-            counts = {k: w.launches for k, w in wrappers.items()}
+            counts = launch_counts()
             files = len(list(Path("output").glob(f"{name}_*.vtk")))
         flags = {k: float(v.max()) for k, v in sol.aux.items()
                  if k.startswith("__err_")}
@@ -2395,13 +2386,13 @@ def grid_examples(dev):
                 kwargs["n_steps"] = 0
         with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
                 contextlib.redirect_stdout(io.StringIO()):
-            wrappers = reset_launches()
+            reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             m.run(sol, **kwargs)
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
-            counts = {k: w.launches for k, w in wrappers.items()}
+            counts = launch_counts()
         flags = {k: float(v.max()) for k, v in sol.aux.items()
                  if k.startswith("__err_")}
         if any(flags.values()) or any(counts.values()):
@@ -2518,13 +2509,13 @@ def cadence_run(tag, engine, cube, n_steps, rebuild_every, rebin_m_cap,
         run()
     finally:
         TL.lattice_rebin = rebin
-    wrappers = reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, _, aux = run()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = launch_counts()
     flags = {k: float(v.float().max()) for k, v in aux.items()
              if k.startswith("__err_")}
     if check and any(flags.values()):
@@ -2576,14 +2567,14 @@ def resident_cadences(dev):
     p = B.Params()
     engine = LatticeEngine(**RESIDENT_500K)
     sol = solution(SETTLED, N_CELLS, engine, dev, RESIDENT_CUBE)
-    wrappers = reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     aux = sol.take_steps(RESIDENT_STEPS, p.dt, B.make_force(p),
                          precompute=B.precompute, check_errors=False)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / RESIDENT_STEPS
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = launch_counts()
     expect = (2 * RESIDENT_STEPS, RESIDENT_STEPS // engine.rebuild_every)
     if (launches["lattice_pair"], launches["pour"]) != expect:
         raise AssertionError(f"resident cadence: launches {launches}")
@@ -2962,10 +2953,10 @@ def gabriel_windowed_pass(dev):
     forms = {"windowed": lambda: win.pairwise(*args),
              "gather": lambda: gather.pairwise(*args),
              "K5": lambda: gabriel_lattice_pallas(*args, **GABRIEL_100K)}
-    wrappers = reset_launches()
+    reset_launches()
     outs = {"windowed": forms["windowed"]()}
     torch.cuda.synchronize()
-    launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+    launched = {k: v for k, v in launch_counts().items() if v}
     if launched:
         raise AssertionError(f"windowed Gabriel pass launched {launched}")
     outs["gather"], outs["K5"] = forms["gather"](), forms["K5"]()
@@ -3022,7 +3013,7 @@ def relaxation_forms(dev):
     ends, flags, ms = {}, {}, {}
     for form, engine in engines.items():
         sol = solution_at(seed, snap, dev, engine)
-        wrappers = reset_launches()
+        reset_launches()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3033,8 +3024,7 @@ def relaxation_forms(dev):
         end.record()
         torch.cuda.synchronize()
         ms[form] = start.elapsed_time(end) / RELAX_STEPS
-        launched = {k: w.launches for k, w in wrappers.items()
-                    if w.launches}
+        launched = {k: v for k, v in launch_counts().items() if v}
         if launched:
             raise AssertionError(f"relaxation on the {form} form launched "
                                  f"{launched}")
@@ -3097,11 +3087,11 @@ def plain_lattice_route(dev, C):
     routes = (("pallas=False", False), ("pallas=True", True))
     outs, counts = {}, {}
     for route, pallas in routes:
-        wrappers = reset_launches()
+        reset_launches()
         outs[route] = run(pallas)
         torch.cuda.synchronize()
-        counts[route] = {k: w.launches for k, w in wrappers.items()
-                         if w.launches}
+        counts[route] = {k: v for k, v in launch_counts().items()
+                         if v}
     want = {"pour": 2 * PLAIN_STEPS, "lattice_pair": 2 * PLAIN_STEPS}
     if any(c != want for c in counts.values()):
         raise AssertionError(f"phase 36 launches {counts}, expected {want} "
@@ -3341,4 +3331,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    sys.path.insert(0, str(ROOT))
+    from yalla_tpu_torch.utils import profiling
+    with profiling.tracing():
+        main()

@@ -25,6 +25,7 @@ from yalla_tpu_torch.ops.common import friction_w_neighbour
 from yalla_tpu_torch.ops.functors import pair_functor
 from yalla_tpu_torch.ops.gabriel_pallas import (gabriel_lattice_pallas,
                                                 gabriel_lattice_plain)
+from yalla_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -152,12 +153,12 @@ def test_wrapper_runs_plain_on_cpu_and_refuses_the_rest():
     n, pos, ov = random_tissue(n=300, n_pad=384, half=3.0)
     _, _, tX, tov = both(pos, ov)
     kw = dict(grid_size=16, capacity=8, max_candidates=20)
-    before = gabriel_lattice_pallas.launches
-    got = gabriel_lattice_pallas(spring, friction_w_neighbour, tX, tov, n,
-                                 1.0, **kw)
+    with profiling.tracing():
+        got = gabriel_lattice_pallas(spring, friction_w_neighbour, tX, tov,
+                                     n, 1.0, **kw)
+        assert "kernels.gabriel_pair" not in profiling.counters()
     want = gabriel_lattice_plain(spring, friction_w_neighbour, tX, tov, n,
                                  1.0, **kw)
-    assert gabriel_lattice_pallas.launches == before
     for a, b in zip(got[0], want[0]):
         assert torch.equal(a, b)
     meta = Float3(*(torch.zeros(16, device="meta") for _ in range(3)))

@@ -14,6 +14,7 @@ slices within the reference's ``isclose`` of the same steps on the CPU
 (the link and wall forces' ``index_add_`` sums in no fixed order on the
 GPU).
 """
+import contextlib
 import importlib
 from pathlib import Path
 
@@ -45,6 +46,7 @@ from yalla_tpu_torch.ops.tile_pallas import (tile_pairwise_pallas,
                                              tile_pairwise_plain)
 from yalla_tpu_torch.solvers import (GabrielEngine, LatticeEngine, Solution,
                                      TileEngine, augment)
+from yalla_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -58,6 +60,20 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def launches(*kernels):
+    """The launches of each of ``kernels`` in the block (the
+    ``kernels.<name>`` counters of ``utils.profiling``), a list filled
+    when the block ends."""
+    got = []
+    with profiling.tracing():
+        before = profiling.counters()
+        yield got
+        after = profiling.counters()
+    got += [after.get(f"kernels.{k}", 0) - before.get(f"kernels.{k}", 0)
+            for k in kernels]
 
 
 def pour_input(grid, C, cid, n_pad, seed, K=5):
@@ -126,9 +142,9 @@ def test_pour_kernel_matches_plain(cuda, case):
     grid, C, S, row_starts, unrouted = POUR_CASES[case]
     S = torch.as_tensor(S, device=cuda)
     row_starts = torch.as_tensor(row_starts, device=cuda)
-    before = pour_pallas.launches
-    got = pour_pallas(S, row_starts, grid, C)
-    assert pour_pallas.launches == before + 1
+    with launches("pour") as launched:
+        got = pour_pallas(S, row_starts, grid, C)
+    assert launched == [1]
     want = pour_plain(S, row_starts, grid, C)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
@@ -270,12 +286,12 @@ def test_pair_kernel_matches_plain(cuda, case):
     lay, n, gs, cap, force, x_split = _pair_case(case, cuda)
     kw = dict(grid_size=gs, capacity=cap, z_block=2, extras_block_cap=16,
               x_split=x_split)
-    before = lattice_pairwise_pallas.launches
-    got = lattice_pairwise_pallas(force, friction_w_neighbour, lay, n, 1.0,
-                                  **kw)
+    with launches("lattice_pair") as launched:
+        got = lattice_pairwise_pallas(force, friction_w_neighbour, lay, n,
+                                      1.0, **kw)
     want = lattice_pairwise_plain(force, friction_w_neighbour, lay, n, 1.0,
                                   **kw)
-    assert lattice_pairwise_pallas.launches == before + 1
+    assert launched == [1]
     assert len(got) == len(want)
     mags = None
     if case == IWG:   # each slot's sum of |term|, per dF field
@@ -345,10 +361,10 @@ def test_pair_kernel_zhalo_matches_plain(cuda, functor, case):
         shim, halo, gz = slab_of(lay, grid, cap, n_slabs, k)
         slab = dict(grid_z=gz, n_pad=n_pad, z_halo=halo, **kw)
         assert int((shim.pid < n_pad).sum()) > 100
-        before = lattice_pairwise_pallas.launches
-        got = lattice_pairwise_pallas(force, friction_w_neighbour, shim, n,
-                                      1.0, **slab)
-        assert lattice_pairwise_pallas.launches == before + 1
+        with launches("lattice_pair") as launched:
+            got = lattice_pairwise_pallas(force, friction_w_neighbour, shim,
+                                          n, 1.0, **slab)
+        assert launched == [1]
         want = lattice_pairwise_plain(force, friction_w_neighbour, shim, n,
                                       1.0, **slab)
         mags = lattice_pairwise_plain(mag, friction_w_neighbour, shim, n,
@@ -387,14 +403,15 @@ def test_z_slab_pallas_false_runs_the_kernel(cuda):
     X = B.Cell(*(torch.as_tensor(h[f], device=cuda) for f in B.Cell._fields))
     ovt = Float3(*(torch.as_tensor(ov[f], device=cuda) for f in "xyz"))
     p = B.Params()
-    out, launches = {}, {}
+    out, k1 = {}, {}
     for pallas in (False, True):
-        before = lattice_pairwise_pallas.launches
-        out[pallas] = lattice_sharded_heun_steps(
-            single(cuda), 4, 2, B.make_force(p), friction_w_neighbour, "com",
-            16, 8, 2, X, ovt, n, p.dt, 1.0, 0, B.precompute, pallas=pallas)
-        launches[pallas] = lattice_pairwise_pallas.launches - before
-    assert launches == {False: 8, True: 8}
+        with launches("lattice_pair") as launched:
+            out[pallas] = lattice_sharded_heun_steps(
+                single(cuda), 4, 2, B.make_force(p), friction_w_neighbour,
+                "com", 16, 8, 2, X, ovt, n, p.dt, 1.0, 0, B.precompute,
+                pallas=pallas)
+        k1[pallas] = launched[0]
+    assert k1 == {False: 8, True: 8}
     (Xf, ovf, auxf), (Xt, ovt_, auxt) = out[False], out[True]
     assert not any(bool(v.any()) for k, v in auxt.items()
                    if k.startswith("__err_"))
@@ -426,10 +443,9 @@ def test_slice_on_gpu_matches_cpu(cuda):
         sol.h_X = B.Cell(*(a.numpy() for a in X))
         sol.copy_to_device()
         sol.d_old_v = Float3(*(a.to(dev) for a in ov))
-        pour_pallas.launches = lattice_pairwise_pallas.launches = 0
-        sol.take_steps(2, 0.2, force, precompute=B.precompute)
-        out[str(dev)] = (sol.copy_to_host(), pour_pallas.launches,
-                         lattice_pairwise_pallas.launches)
+        with launches("pour", "lattice_pair") as launched:
+            sol.take_steps(2, 0.2, force, precompute=B.precompute)
+        out[str(dev)] = (sol.copy_to_host(), *launched)
     h_cpu, *cpu_launches = out["cpu"]
     h_gpu, *gpu_launches = out[str(cuda)]
     assert cpu_launches == [0, 0] and gpu_launches == [4, 4]
@@ -556,10 +572,10 @@ def test_tile_kernel_matches_plain(cuda, functor, n, n_pad):
         exact = ()
     else:
         force, X, ov, exact = _tile_case(functor, n, n_pad, cuda)
-    before = tile_pairwise_pallas.launches
-    got = tile_pairwise_pallas(force, friction_w_neighbour, X, ov, n)
+    with launches("tile_pair") as launched:
+        got = tile_pairwise_pallas(force, friction_w_neighbour, X, ov, n)
     want = tile_pairwise_plain(force, friction_w_neighbour, X, ov, n)
-    assert tile_pairwise_pallas.launches == before + 1
+    assert launched == [1]
     got, want = _rows(got, n), _rows(want, n)
     if example:
         mags = _magnitudes(force, X, ov, n)
@@ -586,10 +602,10 @@ def test_central_kernel_matches_plain(cuda, friction, n, n_pad, nbs):
     exact."""
     X, ov, n = _sorting_ball(cuda, n, n_pad)
     force = S.make_adhesion_central(S.Params(), count_neighbours=nbs)
-    before = central_pairwise_mxu.launches
-    got = central_pairwise_mxu(force, friction, X, ov, n)
+    with launches("central_pair") as launched:
+        got = central_pairwise_mxu(force, friction, X, ov, n)
     want = central_pairwise_plain(force, friction, X, ov, n)
-    assert central_pairwise_mxu.launches == before + 1
+    assert launched == [1]
     assert set(got[3]) == ({"nbs"} if nbs else set())
     _assert_sums(_rows(got, n), _rows(want, n), exact_aux=("nbs",),
                  atol=1e-4)
@@ -621,14 +637,14 @@ def test_sorting_slice_on_gpu_matches_cpu(cuda, mxu):
     p = S.Params()
     force = S.make_adhesion_central(p) if mxu else S.make_adhesion(p)
     engine = TileEngine(mxu=True) if mxu else TileEngine(pallas=True)
-    counter = central_pairwise_mxu if mxu else tile_pairwise_pallas
+    kernel = "central_pair" if mxu else "tile_pair"
     out = {}
     for dev in ("cpu", cuda):
         sol = Solution(S.Cell, 900, engine=engine, device=dev, n_pad=1000)
         sol.h_X = S.Cell(**S.initial_ball(900, 1000, seed=1))
-        counter.launches = 0
-        sol.take_steps(2, p.dt, force)
-        out[str(dev)] = (sol.copy_to_host(), counter.launches)
+        with launches(kernel) as launched:
+            sol.take_steps(2, p.dt, force)
+        out[str(dev)] = (sol.copy_to_host(), *launched)
     (h_cpu, l_cpu), (h_gpu, l_gpu) = out["cpu"], out[str(cuda)]
     assert (l_cpu, l_gpu) == (0, 4)
     for f in S.Cell._fields:
@@ -669,12 +685,12 @@ def test_gabriel_kernel_matches_plain(cuda, nc):
     plain version's."""
     X, ov, n = _half_space(cuda)
     kw = dict(GABRIEL, max_candidates=nc)
-    before = gabriel_lattice_pallas.launches
-    got = gabriel_lattice_pallas(W.relu_force, W.wall_friction, X, ov, n,
-                                 1.0, **kw)
+    with launches("gabriel_pair") as launched:
+        got = gabriel_lattice_pallas(W.relu_force, W.wall_friction, X, ov,
+                                     n, 1.0, **kw)
     want = gabriel_lattice_plain(W.relu_force, W.wall_friction, X, ov, n,
                                  1.0, **kw)
-    assert gabriel_lattice_pallas.launches == before + 1
+    assert launched == [1]
     _assert_gabriel(got, want)
     over = want[3]["__err_gabriel_candidates"][:n]
     if nc == 4:
@@ -751,9 +767,9 @@ def test_gabriel_kernel_refuses_force_or_friction_without_functor(cuda):
                    device=cuda, n_pad=2048)
     sol.h_X = Float3(*(a.cpu().numpy() for a in X))
     sol.h_n = n
-    before = gabriel_lattice_pallas.launches
-    sol.take_step(W.dt, W.relu_force, pw_friction=W.wall_friction)
-    assert gabriel_lattice_pallas.launches == before + 2
+    with launches("gabriel_pair") as launched:
+        sol.take_step(W.dt, W.relu_force, pw_friction=W.wall_friction)
+    assert launched == [2]
 
 
 def gabriel_slice(device, n_steps=2, seed=0):
@@ -766,16 +782,15 @@ def gabriel_slice(device, n_steps=2, seed=0):
     links.set_d_n(sol.h_n)
     rng = np.random.default_rng(seed)
     m = links.n_pad
-    gabriel_lattice_pallas.launches = pour_pallas.launches = 0
-    for _ in range(n_steps):
-        draws = Draws(*(torch.as_tensor(a, device=device) for a in (
-            rng.integers(0, 27, m), rng.random(m, np.float32),
-            rng.random(m, np.float32))))
-        links.update(W.update_protrusions_wall, sol, draws=draws)
-        sol.take_step(W.dt, W.relu_force, pw_friction=W.wall_friction,
-                      gen_forces=link_wall_forces(links, W.WALL))
-    return (sol.copy_to_host(), sol.h_n, gabriel_lattice_pallas.launches,
-            pour_pallas.launches)
+    with launches("gabriel_pair", "pour") as launched:
+        for _ in range(n_steps):
+            draws = Draws(*(torch.as_tensor(a, device=device) for a in (
+                rng.integers(0, 27, m), rng.random(m, np.float32),
+                rng.random(m, np.float32))))
+            links.update(W.update_protrusions_wall, sol, draws=draws)
+            sol.take_step(W.dt, W.relu_force, pw_friction=W.wall_friction,
+                          gen_forces=link_wall_forces(links, W.WALL))
+    return (sol.copy_to_host(), sol.h_n, *launched)
 
 
 def test_gabriel_slice_on_gpu_matches_cpu(cuda):
@@ -795,11 +810,10 @@ def test_lattice_engine_pairwise_on_gpu_matches_cpu(cuda):
     outs = {}
     for dev in ("cpu", cuda):
         X, ov = load_settled(SETTLED_600, B.Cell, dev)
-        pour_pallas.launches = lattice_pairwise_pallas.launches = 0
-        out = engine.pairwise(force, friction_w_neighbour,
-                              augment(X, N, B.precompute), ov, N, 1.0)
-        assert (pour_pallas.launches, lattice_pairwise_pallas.launches) == \
-            ((1, 1) if dev == cuda else (0, 0))
+        with launches("pour", "lattice_pair") as launched:
+            out = engine.pairwise(force, friction_w_neighbour,
+                                  augment(X, N, B.precompute), ov, N, 1.0)
+        assert launched == ([1, 1] if dev == cuda else [0, 0])
         F, sum_f, sum_v, aux = out
         outs[str(dev)] = (type(F)(*(a.cpu() for a in F)), sum_f.cpu(),
                           tuple(a.cpu() for a in sum_v),

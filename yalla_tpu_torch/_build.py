@@ -23,6 +23,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from .utils.profiling import count, span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # No fast-math: binning and the cutoff must decide exactly as the plain
@@ -120,6 +122,7 @@ def build():
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
+    count("setup.kernel_builds")
     tag = f"{out.stem}.{os.getpid()}"
     nvcc = nvcc_path()
     sources = sorted(CSRC.glob("*.cu"))
@@ -141,14 +144,17 @@ def build():
 
 @functools.cache
 def library():
-    """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.yalla_error_string.argtypes = [ctypes.c_int]
-    lib.yalla_error_string.restype = ctypes.c_char_p
+    """The loaded kernel library (built on first call): the span
+    ``setup.kernels`` (the sources' hash, a build where needed, the load),
+    and ``setup.kernel_builds`` counts a build."""
+    with span("setup.kernels"):
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.yalla_error_string.argtypes = [ctypes.c_int]
+        lib.yalla_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -23,6 +23,8 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils.profiling import count, span
+
 _SRC = Path(__file__).resolve().parent / "vtkio_native.cpp"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _lock = threading.Lock()
@@ -37,6 +39,7 @@ def _build():
     out = _BUILD_DIR / f"libvtkio_native_{tag}.so"
     if not out.exists():
         _BUILD_DIR.mkdir(exist_ok=True)
+        count("setup.kernel_builds")
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", str(_SRC),
                "-o", str(tmp)]
@@ -50,11 +53,13 @@ def _build():
 
 
 def get_lib():
-    """The loaded native library, or None (fallback to pure Python)."""
+    """The loaded native library, or None (fallback to pure Python).  Its
+    first call is the span ``setup.native`` (the build where needed, the
+    load); ``setup.kernel_builds`` counts a build."""
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
-    with _lock:
+    with _lock, span("setup.native"):
         if _lib is not None or _tried:
             return _lib
         _tried = True

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from .dtypes import Float3, device_of
+from .utils.profiling import span, spanned
 
 __all__ = ["proliferate", "DivisionInfo", "Draws", "draw", "Lineage",
            "lineage_init", "record_divisions"]
@@ -97,6 +98,7 @@ def _with_rows(base, start, rows):
     return out
 
 
+@spanned("growth.proliferate")
 def proliferate(want_fn, child_fn, X, old_v, n, generator=None, props=(),
                 birth_cap=None, draws=None):
     """One division pass.
@@ -134,7 +136,8 @@ def proliferate(want_fn, child_fn, X, old_v, n, generator=None, props=(),
     # both cutoffs are monotone in offs, so the surviving divisions are
     # exactly the first n_divided wants (a slot-ordered prefix)
     ok = want & (offs <= min(W, n_pad - n))
-    n_divided, n_wanted = torch.stack([ok.sum(), want.sum()]).tolist()
+    with span("growth.readback"):
+        n_divided, n_wanted = torch.stack([ok.sum(), want.sum()]).tolist()
 
     X_parent, X_child = child_fn(X, props, draws.direction, i)
     # parent of the k-th division: the first row with offs == k + 1
@@ -194,6 +197,7 @@ def lineage_init(cap, n_pad, n_0, device="cuda"):
     )
 
 
+@spanned("growth.record_divisions")
 def record_divisions(lin: Lineage, info: DivisionInfo, X, cell_type,
                      time_progression):
     """Append one internal node per division; relabel parent + daughter

@@ -121,8 +121,10 @@ def device_window(fn, calls):
     ({kernel or copy name: device ms per call}, device ms per call of all
     kernels and copies, device kernels per call).  Only the device's own
     events count: a host op's row carries the device time of the kernels
-    it launched, which their own rows already hold, and CUPTI's buffer
-    requests are the profiler's.  A window whose device events did not
+    it launched, which their own rows already hold, a host span (the
+    program's ``utils.profiling`` spans) is mirrored on the device's
+    timeline under its own name, and CUPTI's buffer requests are the
+    profiler's.  A window whose device events did not
     arrive (CUPTI drops one now and then, at times several in a row) is
     taken again after a pause, ``WINDOW_TRIES`` windows in all; raises if
     the profiler still shows no device time."""
@@ -140,8 +142,10 @@ def device_window(fn, calls):
                 fn()
             torch.cuda.synchronize()
         per, busy, kernels = {}, 0.0, 0
+        host = {e.name for e in prof.events()
+                if e.device_type == DeviceType.CPU}
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CPU or \
+            if e.device_type == DeviceType.CPU or e.key in host or \
                     e.key == "Activity Buffer Request":
                 continue
             self_us = e.self_device_time_total

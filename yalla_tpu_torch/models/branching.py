@@ -32,6 +32,7 @@ from ..polarity import (bending_force_cart, bending_post_pair,
 from ..ops.common import ERR_PREFIX
 from ..solvers import (GridEngine, LatticeEngine, Solution, _pad_size,
                        cube_occupancy, friction_w_neighbour, heun_step)
+from ..utils.profiling import spanned
 
 Cell = make_pt("BranchingCell", "theta", "phi", "u", "v", "ctype")
 
@@ -362,6 +363,7 @@ def make_frame(p: Params, engine, substeps=11):
     want = make_want_fn(p)
     child = make_child_fn(p)
 
+    @spanned("frame")
     def frame(state: State, time_progression, draws=None):
         X, old_v, n, lin = state.X, state.old_v, state.n, state.lineage
         epi_nbs, mes_nbs = state.epi_nbs, state.mes_nbs

@@ -36,6 +36,7 @@ import torch
 
 from .common import (friction_on_background, friction_w_neighbour,
                      split_force_output)
+from ..utils.profiling import count
 from .functors import param_array, require
 from .tile_pallas import sm_count, tile_plan
 
@@ -258,8 +259,8 @@ def central_pairwise_mxu(cf, pw_friction, X, old_v, n):
     """Central all-pairs wrapper: launches ``csrc/central_pair.cu`` for
     CUDA tensors, runs :func:`central_pairwise_plain` for CPU tensors,
     raises for anything else.  Same contract and returns as
-    ``tile_pairwise``.  ``central_pairwise_mxu.launches`` counts kernel
-    launches."""
+    ``tile_pairwise``.  A launch counts in ``kernels.central_pair``
+    (``utils.profiling``)."""
     dev = X.x.device
     if dev.type == "cpu":
         return central_pairwise_plain(cf, pw_friction, X, old_v, n)
@@ -285,7 +286,7 @@ def central_pairwise_mxu(cf, pw_friction, X, old_v, n):
     out = torch.empty((7 + len(spec["aux"]), n_pad), dtype=f32, device=dev)
     ar = (ctypes.c_int * max(len(arities), 1))(*arities)
     lib = _build.library()
-    central_pairwise_mxu.launches += 1
+    count("kernels.central_pair")
     _build.check(getattr(lib, spec["entry"])(
         Ri.data_ptr(), Cj.data_ptr(), n, n_pad, len(S), len(arities), ar,
         _FRICTION_FLAGS[pw_friction], param_array(spec, params), plan.rows,
@@ -298,5 +299,3 @@ def central_pairwise_mxu(cf, pw_friction, X, old_v, n):
     return _add_diagonal(cf, pw_friction, X, old_v, F, out[3],
                          (out[4], out[5], out[6]), aux)
 
-
-central_pairwise_mxu.launches = 0

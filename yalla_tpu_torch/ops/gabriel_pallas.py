@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import count
 from .common import evaluate_pairs, grid_dims
 from .functors import pair_functor, param_array, require, unpack_sums
 from .lattice_xla import lattice_build, stencil_slots
@@ -238,10 +239,10 @@ def gabriel_lattice_pallas(pw_int, pw_friction, X, old_v, n, cube_size, *,
                            gabriel_coefficient=0.8):
     """Gabriel lattice wrapper: launches ``csrc/gabriel_pair.cu`` for CUDA
     tensors, runs :func:`gabriel_lattice_plain` for CPU tensors, raises for
-    anything else.  ``gabriel_lattice_pallas.launches`` counts kernel
-    launches.  The kernel takes compact sets of at most ``GABRIEL_MAX_NC``
-    and writes the rows of the ids that hold a slot; the rest stay at the
-    zeros the wrapper fills."""
+    anything else; a launch counts in ``kernels.gabriel_pair``
+    (``utils.profiling``).  The kernel takes compact sets of at most
+    ``GABRIEL_MAX_NC`` and writes the rows of the ids that hold a slot;
+    the rest stay at the zeros the wrapper fills."""
     dev = X.x.device
     kw = dict(grid_size=grid_size, capacity=capacity,
               max_candidates=max_candidates,
@@ -274,7 +275,7 @@ def gabriel_lattice_pallas(pw_int, pw_friction, X, old_v, n, cube_size, *,
     M = len(spec["dF"]) + len(spec["aux"]) + 4
     out = torch.zeros((M + 1, n_pad), dtype=f32, device=dev)
     lib = _build.library()
-    gabriel_lattice_pallas.launches += 1
+    count("kernels.gabriel_pair")
     _build.check(getattr(lib, spec["entries"]["gabriel"])(
         _build.pointers(chans), pid.data_ptr(), n_pad, gx, gy, gz, capacity,
         float(cube_size), gc2, NC, *plan.brick, plan.smem,
@@ -284,5 +285,3 @@ def gabriel_lattice_pallas(pw_int, pw_friction, X, old_v, n, cube_size, *,
     aux.update(_flags(lay, out[M]))
     return F, sum_f, sum_v, aux
 
-
-gabriel_lattice_pallas.launches = 0

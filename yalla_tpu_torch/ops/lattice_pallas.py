@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import count
 from .common import cube_coord, cube_ids, evaluate_pairs, grid_dims
 from .functors import pair_functor, param_array, require, unpack_sums
 from .lattice_xla import (_pad_axis, lattice_pairwise_resident,
@@ -317,8 +318,8 @@ def lattice_pairwise_pallas(pw_int, pw_friction, layout, n, cube_size, *,
                             z_halo=None, x_split=1):
     """Lattice pair-pass wrapper: launches ``csrc/lattice_pair.cu`` for
     CUDA tensors, runs :func:`lattice_pairwise_plain` for CPU tensors,
-    raises for anything else.  ``lattice_pairwise_pallas.launches`` counts
-    kernel launches.  ``z_block`` is the JAX kernel's block height, which
+    raises for anything else; a launch counts in ``kernels.lattice_pair``
+    (``utils.profiling``).  ``z_block`` is the JAX kernel's block height, which
     sets the blocks of ``__err_extras_block``; ``x_split`` the thin
     x-cubes' reach.
 
@@ -398,7 +399,7 @@ def lattice_pairwise_pallas(pw_int, pw_friction, layout, n, cube_size, *,
         e_args = (None, None, None, None, 0)
     plan = lattice_plan((gx, gy, gz), C, len(chans), int(x_split))
     lib = _build.library()
-    lattice_pairwise_pallas.launches += 1
+    count("kernels.lattice_pair")
     _build.check(getattr(lib, spec["entries"]["lattice"])(
         _build.pointers(chans), occ.data_ptr(), *z_args, *e_args, gx, gy,
         gz, C,
@@ -415,6 +416,3 @@ def lattice_pairwise_pallas(pw_int, pw_friction, layout, n, cube_size, *,
     aux_e["__err_extras_block"] = extras_block_overflow(
         layout, cube_size, grid_size, z_block, extras_block_cap)
     return F, sum_f, sum_v, aux, (Fe, sum_fe, sum_ve, aux_e)
-
-
-lattice_pairwise_pallas.launches = 0

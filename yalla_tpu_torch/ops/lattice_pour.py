@@ -25,6 +25,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import count
 from .common import grid_dims
 from .functors import require
 
@@ -85,7 +86,7 @@ def pour_plain(S, row_starts, grid_size, capacity):
 def pour_pallas(S, row_starts, grid_size, capacity):
     """Pour kernel wrapper: launches ``csrc/pour.cu`` for a CUDA tensor,
     runs :func:`pour_plain` for a CPU tensor, raises for anything else.
-    ``pour_pallas.launches`` counts kernel launches."""
+    A launch counts in ``kernels.pour`` (``utils.profiling``)."""
     if S.device.type == "cpu":
         return pour_plain(S, row_starts, grid_size, capacity)
     if S.device.type != "cuda":
@@ -102,12 +103,9 @@ def pour_pallas(S, row_starts, grid_size, capacity):
     live = torch.empty(n_slots, dtype=S.dtype, device=S.device)
     n_unrouted = torch.empty((), dtype=torch.int64, device=S.device)
     lib = _build.library()
-    pour_pallas.launches += 1
+    count("kernels.pour")
     _build.check(lib.yalla_pour(S.data_ptr(), K, n_pad, row_starts.data_ptr(),
                                 n_rows, W, rows, blocks, out.data_ptr(),
                                 live.data_ptr(), n_unrouted.data_ptr(),
                                 _build.stream_handle(S.device)), "pour")
     return out, live, n_unrouted
-
-
-pour_pallas.launches = 0

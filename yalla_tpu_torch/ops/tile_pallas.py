@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import count
 from .functors import pair_functor, param_array, require, unpack_sums
 from .pairwise_xla import tile_pairwise
 
@@ -86,7 +87,7 @@ def tile_pairwise_plain(pw_int, pw_friction, X, old_v, n):
 def tile_pairwise_pallas(pw_int, pw_friction, X, old_v, n):
     """All-pairs wrapper: launches ``csrc/tile_pair.cu`` for CUDA tensors,
     runs :func:`tile_pairwise_plain` for CPU tensors, raises for anything
-    else.  ``tile_pairwise_pallas.launches`` counts kernel launches."""
+    else.  A launch counts in ``kernels.tile_pair`` (``utils.profiling``)."""
     dev = X.x.device
     if dev.type == "cpu":
         return tile_pairwise_plain(pw_int, pw_friction, X, old_v, n)
@@ -110,12 +111,10 @@ def tile_pairwise_pallas(pw_int, pw_friction, X, old_v, n):
     part = torch.empty(plan.scratch, dtype=f32, device=dev)
     out = torch.empty((sums, n_pad), dtype=f32, device=dev)
     lib = _build.library()
-    tile_pairwise_pallas.launches += 1
+    count("kernels.tile_pair")
     _build.check(getattr(lib, spec["entries"]["tile"])(
         _build.pointers(chans), n, n_pad, plan.rows, plan.splits, plan.chunk,
         param_array(spec, params), part.data_ptr(), out.data_ptr(),
         _build.stream_handle(dev)), "tile pair kernel")
     return unpack_sums(out, spec, pw_int, type(X))
 
-
-tile_pairwise_pallas.launches = 0

@@ -20,16 +20,17 @@ Transport: with one rank per card the collectives take CUDA tensors under
 NCCL.  Ranks that share one card cannot use NCCL, and gloo's collectives
 are certain only for CPU tensors, so under gloo a CUDA tensor is staged
 through host memory explicitly: copied to the host, sent, copied back.
-The compute stays on the card.  ``TRANSPORT`` counts the calls, bytes and
-wall seconds of this process's collectives, the device synchronised
-before each so that earlier kernels do not count.
+The compute stays on the card.  While tracing is on
+(``utils.profiling``), each collective is the span ``comm.<collective>``
+and counts in ``comm.calls`` and ``comm.bytes``, the device synchronised
+before it, so that earlier kernels do not count, and after it.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import tempfile
-import time
 import warnings
 from dataclasses import dataclass
 from datetime import timedelta
@@ -37,15 +38,10 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
+
 __all__ = ["Mesh", "all_gather", "psum", "pmax", "plane_exchange", "spawn",
-           "to_numpy", "TRANSPORT", "reset_transport"]
-
-# this process's collectives: calls, bytes sent, wall seconds
-TRANSPORT = {"calls": 0, "bytes": 0, "seconds": 0.0}
-
-
-def reset_transport():
-    TRANSPORT.update(calls=0, bytes=0, seconds=0.0)
+           "to_numpy"]
 
 
 @dataclass(frozen=True)
@@ -78,24 +74,23 @@ def single(device):
     return Mesh(None, 0, 1, torch.device(device))
 
 
-class _Timed:
-    """Counts one collective in ``TRANSPORT``, the device synchronised
-    first when its tensors live on a card."""
-
-    def __init__(self, mesh, nbytes):
-        self.mesh, self.nbytes = mesh, nbytes
-
-    def __enter__(self):
-        if self.mesh.device.type == "cuda":
-            torch.cuda.synchronize(self.mesh.device)
-        self.t0 = time.perf_counter()
-
-    def __exit__(self, *exc):
-        if self.mesh.device.type == "cuda":
-            torch.cuda.synchronize(self.mesh.device)
-        TRANSPORT["calls"] += 1
-        TRANSPORT["bytes"] += self.nbytes
-        TRANSPORT["seconds"] += time.perf_counter() - self.t0
+@contextlib.contextmanager
+def _traced(mesh, name, nbytes):
+    """One collective as the span ``comm.<name>``, counted in
+    ``comm.calls`` and ``comm.bytes``, the card synchronised around it;
+    nothing while tracing is off."""
+    if not profiling.enabled():
+        yield
+        return
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(mesh.device)
+    with profiling.span(f"comm.{name}"):
+        yield
+        if cuda:
+            torch.cuda.synchronize(mesh.device)
+    profiling.count("comm.calls")
+    profiling.count("comm.bytes", nbytes)
 
 
 def _out(mesh, t):
@@ -111,7 +106,7 @@ def all_gather(mesh, t):
     """The ranks' ``t`` concatenated along dim 0, in rank order."""
     if mesh.size == 1:
         return t
-    with _Timed(mesh, t.numel() * t.element_size()):
+    with _traced(mesh, "all_gather", t.numel() * t.element_size()):
         src = _out(mesh, t)
         out = src.new_empty((mesh.size * src.shape[0],) + src.shape[1:])
         with warnings.catch_warnings():
@@ -122,10 +117,10 @@ def all_gather(mesh, t):
         return _back(mesh, out)
 
 
-def _reduce(mesh, t, op):
+def _reduce(mesh, t, op, name):
     if mesh.size == 1:
         return t
-    with _Timed(mesh, t.numel() * t.element_size()):
+    with _traced(mesh, name, t.numel() * t.element_size()):
         buf = _out(mesh, t).clone()
         dist.all_reduce(buf, op=op, group=mesh.group)
         return _back(mesh, buf)
@@ -133,12 +128,12 @@ def _reduce(mesh, t, op):
 
 def psum(mesh, t):
     """Elementwise sum of ``t`` over the ranks (a new tensor)."""
-    return _reduce(mesh, t, dist.ReduceOp.SUM)
+    return _reduce(mesh, t, dist.ReduceOp.SUM, "psum")
 
 
 def pmax(mesh, t):
     """Elementwise maximum of ``t`` over the ranks (a new tensor)."""
-    return _reduce(mesh, t, dist.ReduceOp.MAX)
+    return _reduce(mesh, t, dist.ReduceOp.MAX, "pmax")
 
 
 def plane_exchange(mesh, first, last):
@@ -149,7 +144,8 @@ def plane_exchange(mesh, first, last):
     lo, hi = torch.zeros_like(last), torch.zeros_like(first)
     if mesh.size == 1:
         return lo, hi
-    with _Timed(mesh, 2 * first.numel() * first.element_size()):
+    with _traced(mesh, "plane_exchange",
+                 2 * first.numel() * first.element_size()):
         first, last = _out(mesh, first), _out(mesh, last)
         lo_b, hi_b = torch.zeros_like(last), torch.zeros_like(first)
         ops = []

@@ -32,7 +32,8 @@ import torch
 
 from ..dtypes import Float3
 from ..ops.common import friction_w_neighbour
-from ._comm import TRANSPORT, reset_transport, spawn
+from ..utils import profiling
+from ._comm import spawn
 from .lattice_spmd import ShardedLatticeEngine, lattice_sharded_heun_steps
 from .spmd import gather_pt, make_sharded_step, shard_state
 
@@ -101,26 +102,35 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _tally():
+    """This rank's collectives (seconds, calls, bytes) and K1 launches
+    recorded so far (``utils.profiling``)."""
+    c = profiling.counters()
+    seconds = sum(total for name, (_, total, _) in profiling.spans().items()
+                  if name.startswith("comm."))
+    return (seconds, c.get("comm.calls", 0), c.get("comm.bytes", 0),
+            c.get("kernels.lattice_pair", 0))
+
+
 def _timed(mesh, fn, warmup=False):
     """``fn()`` and its wall seconds, the device synchronised around it,
-    with this rank's transport seconds and kernel launches during it;
-    with ``warmup``, after one untimed call (``fn`` must not change its
-    inputs)."""
-    from ..ops.lattice_pallas import lattice_pairwise_pallas
+    with this rank's transport seconds and kernel launches during it
+    (traced); with ``warmup``, after one untimed call (``fn`` must not
+    change its inputs)."""
     if warmup:
         fn()
     _sync(mesh.device)
-    reset_transport()
-    k1 = lattice_pairwise_pallas.launches
-    t0 = time.perf_counter()
-    out = fn()
-    _sync(mesh.device)
-    return out, {"seconds": time.perf_counter() - t0,
-                 "transport_seconds": TRANSPORT["seconds"],
-                 "transport_calls": TRANSPORT["calls"],
-                 "transport_bytes": TRANSPORT["bytes"],
-                 "lattice_pair_launches":
-                     lattice_pairwise_pallas.launches - k1,
+    with profiling.tracing():
+        before = _tally()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(mesh.device)
+        seconds = time.perf_counter() - t0
+        after = _tally()
+    d = [b - a for a, b in zip(before, after)]
+    return out, {"seconds": seconds, "transport_seconds": d[0],
+                 "transport_calls": d[1], "transport_bytes": d[2],
+                 "lattice_pair_launches": d[3],
                  "transport": mesh.transport}
 
 
@@ -203,7 +213,6 @@ def tiny_branching_state(n_pad=256, n_active=100, seed=0, device="cpu"):
 def _dryrun_rank(mesh):
     from ..growth import proliferate
     from ..models import branching as B
-    from ..ops.lattice_pallas import lattice_pairwise_pallas
     from ..polarity import polarity_precompute3
     from ..solvers import GridEngine
     D, dev = mesh.size, mesh.device
@@ -246,12 +255,15 @@ def _dryrun_rank(mesh):
     for pallas in (True, True, False):
         X, old_v, n, props, _ = proliferate(want, child, X, old_v, n, g,
                                             props=props)
-        launches = lattice_pairwise_pallas.launches
-        X, old_v, aux = lattice_sharded_heun_steps(
-            mesh, 2, 2, force, friction_w_neighbour, "com", gs, C, zb, X,
-            old_v, n, p.dt, p.r_max, 0, polarity_precompute3, pallas=pallas)
+        with profiling.tracing():
+            launches = _tally()[3]
+            X, old_v, aux = lattice_sharded_heun_steps(
+                mesh, 2, 2, force, friction_w_neighbour, "com", gs, C, zb,
+                X, old_v, n, p.dt, p.r_max, 0, polarity_precompute3,
+                pallas=pallas)
+            launches = _tally()[3] - launches
         if dev.type == "cuda":
-            assert lattice_pairwise_pallas.launches - launches == 4, \
+            assert launches == 4, \
                 f"a pallas={pallas} z-slab frame did not run the lattice " \
                 f"pair kernel twice a step"
         props = (aux["epi_nbs"], aux["mes_nbs"])

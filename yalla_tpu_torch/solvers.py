@@ -33,6 +33,7 @@ from .ops.common import (ERR_PREFIX, apply_derived_aux, apply_post_pair,
 from .ops.grid_xla import (build_grid, gabriel_pairwise, gabriel_windowed,
                            grid_overflow, grid_pairwise)
 from .ops.pairwise_xla import tile_pairwise
+from .utils.profiling import span, spanned
 
 __all__ = ["TileEngine", "GridEngine", "GabrielEngine", "LatticeEngine",
            "GenericForce", "Solution", "SimulationError", "heun_step",
@@ -247,12 +248,15 @@ class LatticeEngine:
         from .ops.lattice_xla import (_merge_extras, lattice_build,
                                       slot_to_stable)
         extras = self.extras_cap if self.pallas else 0
-        lay = lattice_build(X, old_v, n, cube_size, self.grid_size,
-                            self.capacity, extras, x_split=self.x_split)
-        outs = lattice_pairwise_pallas(
-            pw_int, pw_friction, lay, n, cube_size, grid_size=self.grid_size,
-            capacity=self.capacity, z_block=self.z_block,
-            extras_block_cap=self.extras_block_cap, x_split=self.x_split)
+        with span("lattice.build"):
+            lay = lattice_build(X, old_v, n, cube_size, self.grid_size,
+                                self.capacity, extras, x_split=self.x_split)
+        with span("lattice.pair"):
+            outs = lattice_pairwise_pallas(
+                pw_int, pw_friction, lay, n, cube_size,
+                grid_size=self.grid_size, capacity=self.capacity,
+                z_block=self.z_block,
+                extras_block_cap=self.extras_block_cap, x_split=self.x_split)
         F, sum_f, sum_v, aux = (slot_to_stable(lay, t) for t in outs[:4])
         if extras:
             Fe, sum_fe, sum_ve, aux_e = outs[4]
@@ -366,6 +370,7 @@ def _deriv(engine, pw_int, pw_friction, fix_mode, precompute,
     return dX, aux
 
 
+@spanned("integrator.heun_step")
 def heun_step(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
               cube_size, fix_point=0, precompute=None, gen=None,
               gen_args=None):

@@ -38,6 +38,7 @@ import torch
 
 from . import _native
 from .polarity import DEFAULT_AXIS
+from .utils.profiling import carry, count, span, spanned
 
 __all__ = ["Vtk_output", "Vtk_input"]
 
@@ -131,8 +132,9 @@ class Vtk_output:
             return
         while len(self._pending) >= self._max_queue:
             self._pending.popleft().result()  # backpressure + error check
-        self._pending.append(self._pool.submit(job))
+        self._pending.append(self._pool.submit(carry(job)))
 
+    @spanned("output.drain")
     def drain(self):
         """Block until all queued writes hit disk (re-raises worker errors)."""
         while self._pending:
@@ -266,6 +268,7 @@ class Vtk_output:
         self._submit(job)
 
     # -- whole frame in one transfer ------------------------------------------
+    @spanned("output.submit")
     def write_frame(self, points, mask=None, polarity=False,
                     polarity_axis=DEFAULT_AXIS, fields=(), properties=()):
         """Positions + polarity + fields + properties with ONE device->host
@@ -279,6 +282,11 @@ class Vtk_output:
         fields: Pt field names -> SCALARS float sections.
         properties: ``Property`` objects or ``(name, tensor, dtype)``
             tuples; int dtypes ride a second (int32) stacked pull.
+
+        Traced (``utils.profiling``): the call is the span
+        ``output.submit``; its job is ``output.job``, of which
+        ``output.transfer``, ``output.format`` and ``output.write`` are
+        parts, and counts the file's bytes in ``output.bytes``.
         """
         if getattr(points, "d_X", None) is None:
             points.copy_to_device()
@@ -319,40 +327,45 @@ class Vtk_output:
         base_name = self.base_name
         self._point_data_started = True
 
+        @spanned("output.job")
         def job():
-            F = _host(fbuf)
-            I = _host(ibuf) if ibuf is not None else None
-            m = None if mask is None else _host(mask)[:n].astype(bool)
+            with span("output.transfer"):
+                F = _host(fbuf)
+                I = _host(ibuf) if ibuf is not None else None
+                m = None if mask is None else _host(mask)[:n].astype(bool)
             sel = slice(None) if m is None else m
             F = F[sel]
             I = I[sel] if I is not None else None
             n_write = F.shape[0]
             frame["mask"] = m
             frame["n_written"] = n_write
-            with open(path, "wb") as f:
-                f.write(f"# vtk DataFile Version 3.0\n{base_name}\n"
-                        f"ASCII\nDATASET POLYDATA\n"
-                        f"\nPOINTS {n_write} float\n".encode())
-                f.write(_fmt_rows(F[:, :3]))
-                f.write(f"\nVERTICES {n_write} {2 * n_write}\n".encode())
-                f.write(_fmt_vertices(n_write))
-                f.write(f"\nPOINT_DATA {n_write}\n".encode())
+            with span("output.format"):
+                parts = [f"# vtk DataFile Version 3.0\n{base_name}\n"
+                         f"ASCII\nDATASET POLYDATA\n"
+                         f"\nPOINTS {n_write} float\n".encode(),
+                         _fmt_rows(F[:, :3]),
+                         f"\nVERTICES {n_write} {2 * n_write}\n".encode(),
+                         _fmt_vertices(n_write),
+                         f"\nPOINT_DATA {n_write}\n".encode()]
                 if polarity:
                     th, ph = F[:, 3], F[:, 4]
                     nx = np.sin(th) * np.cos(ph)
                     ny = np.sin(th) * np.sin(ph)
                     nz = np.where((th == 0) & (ph == 0), 0.0, np.cos(th))
-                    f.write(b"NORMALS polarity float\n")
-                    f.write(_fmt_rows(np.stack([nx, ny, nz], axis=1)))
+                    parts += [b"NORMALS polarity float\n",
+                              _fmt_rows(np.stack([nx, ny, nz], axis=1))]
                 for name, col in fsections:
-                    f.write(f"SCALARS {name} float\n"
-                            f"LOOKUP_TABLE default\n".encode())
-                    f.write(_fmt_rows(F[:, col][:, None]))
+                    parts += [f"SCALARS {name} float\n"
+                              f"LOOKUP_TABLE default\n".encode(),
+                              _fmt_rows(F[:, col][:, None])]
                 for name, ptype, kind, col in psections:
-                    f.write(f"SCALARS {name} {ptype}\n"
-                            f"LOOKUP_TABLE default\n".encode())
-                    f.write(_fmt_ints(I[:, col]) if kind == "i"
-                            else _fmt_rows(F[:, col][:, None]))
+                    parts += [f"SCALARS {name} {ptype}\n"
+                              f"LOOKUP_TABLE default\n".encode(),
+                              _fmt_ints(I[:, col]) if kind == "i"
+                              else _fmt_rows(F[:, col][:, None])]
+            with span("output.write"), open(path, "wb") as f:
+                f.writelines(parts)
+                count("output.bytes", f.tell())
 
         self._submit(job)
         self.time_step += 1
