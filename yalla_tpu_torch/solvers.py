@@ -15,7 +15,8 @@ with every cadence, thin x-cubes and mover routing
 (``LatticeEngine.pairwise`` for ``heun_step``, and
 ``ops.lattice_xla.lattice_heun_steps``, which ``take_steps`` runs),
 ``solver="auto"``, the switch of ``solver="grid"`` to the lattice above
-20k points, and ``Solution.validate``.
+20k points, and ``Solution.validate``.  On the card a Heun step on the
+kernel lattice engine runs as a CUDA graph (``step_graph.py``).
 """
 from __future__ import annotations
 
@@ -26,10 +27,12 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from . import step_graph
 from .dtypes import Float3, device_of, make_pt
 from .ops.common import (ERR_PREFIX, apply_derived_aux, apply_post_pair,
                          friction_on_background, friction_w_neighbour,
                          grid_dims, mask_tree, out_of_grid_mask)
+from .ops.functors import PAIR_FUNCTORS
 from .ops.grid_xla import (build_grid, gabriel_pairwise, gabriel_windowed,
                            grid_overflow, grid_pairwise)
 from .ops.pairwise_xla import tile_pairwise
@@ -37,7 +40,8 @@ from .utils.profiling import span, spanned
 
 __all__ = ["TileEngine", "GridEngine", "GabrielEngine", "LatticeEngine",
            "GenericForce", "Solution", "SimulationError", "heun_step",
-           "heun_steps", "friction_w_neighbour", "friction_on_background"]
+           "heun_steps", "step_graph_key", "friction_w_neighbour",
+           "friction_on_background"]
 
 
 class SimulationError(RuntimeError):
@@ -302,12 +306,18 @@ def _as_generic(gen_forces):
 
 def _fix_components(dX, n, active, fix_mode, fix_point):
     """Momentum fix: COM drift (default), pinned point, or xy-point/z-COM
-    (ref solvers.cuh:196-208, 240-253).  Only x, y, z are ever fixed."""
+    (ref solvers.cuh:196-208, 240-253).  Only x, y, z are ever fixed.
+    ``n`` is an int, or a 0-d device tensor (the step's CUDA graph)."""
     def com(a):
         # summed in f64, so that the drift does not depend on the order
         # of the sum (the cells axis sums it per rank)
-        return (torch.where(active, a, 0.0).sum(dtype=torch.float64)
-                / n).to(torch.float32)
+        s = torch.where(active, a, 0.0).sum(dtype=torch.float64)
+        if isinstance(n, torch.Tensor):
+            # the product with the reciprocal: what the card computes for
+            # a division by a host number, so both give the same bits
+            return (s * torch.reciprocal(n.to(torch.float64))).to(
+                torch.float32)
+        return (s / n).to(torch.float32)
     if fix_mode == "com":
         return com(dX.x), com(dX.y), com(dX.z)
     if fix_mode == "point":
@@ -370,13 +380,67 @@ def _deriv(engine, pw_int, pw_friction, fix_mode, precompute,
     return dX, aux
 
 
+def step_graph_key(engine, pw_int, pw_friction, fix_mode, X, old_v, dt,
+                   cube_size, fix_point=0, precompute=None, gen=None):
+    """The key of the step's CUDA graph (:mod:`.step_graph`), or None
+    where :func:`heun_step` runs eagerly.  A step is captured on a
+    ``LatticeEngine`` (not a subclass) with ``pallas``, on CUDA tensors,
+    with no generic force (user code, which may read back) and with
+    ``dt``, ``cube_size`` and ``fix_point`` Python numbers.  The key is
+    what the capture bakes in: the engine (by value), the force, the
+    friction and the precompute (by identity), the parameters of the
+    force's CUDA functor (by value), the momentum fix, ``dt``, the cube
+    size, the point type, the shapes, dtypes and device of the state."""
+    if type(engine) is not LatticeEngine or not engine.pallas \
+            or gen is not None:
+        return None
+    state = (*X, *old_v)
+    if not all(a.is_cuda for a in state) or not all(
+            isinstance(v, (int, float)) for v in (dt, cube_size, fix_point)):
+        return None
+    key = (engine, pw_int, pw_friction, precompute, _functor_values(pw_int),
+           fix_mode, fix_point, type(dt), dt, cube_size, type(X),
+           tuple((tuple(a.shape), a.dtype) for a in state), X.x.device)
+    try:
+        hash(key)
+    except TypeError:
+        return None
+    return key
+
+
+def _functor_values(pw_int):
+    """The parameters a kernel reads from the force's CUDA functor at each
+    launch (``ops.functors.param_array``), None without one."""
+    functor = getattr(pw_int, "cuda_functor", None)
+    if functor is None or functor[0] not in PAIR_FUNCTORS:
+        return None
+    return (functor[0],) + tuple(
+        getattr(functor[1], k, None)
+        for k in PAIR_FUNCTORS[functor[0]]["params"])
+
+
 @spanned("integrator.heun_step")
 def heun_step(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
               cube_size, fix_point=0, precompute=None, gen=None,
               gen_args=None):
     """One 2nd-order step: ``(X, old_v) -> (X', old_v', aux)``.  ``gen``
     is a ``GenericForce`` (its ``args`` ignored) called with
-    ``gen_args``."""
+    ``gen_args``.  Where :func:`step_graph_key` gives a key, the step is
+    a CUDA graph's replay (:mod:`.step_graph`): the same kernels on the
+    same inputs, bit for bit the eager step."""
+    def body(Xc, ovc, nc):
+        return _heun(engine, pw_int, pw_friction, fix_mode, Xc, ovc, nc, dt,
+                     cube_size, fix_point, precompute, gen, gen_args)
+    key = step_graph_key(engine, pw_int, pw_friction, fix_mode, X, old_v,
+                         dt, cube_size, fix_point, precompute, gen)
+    if key is None:
+        return body(X, old_v, n)
+    return step_graph.run(key, body, X, old_v, n)
+
+
+def _heun(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
+          cube_size, fix_point, precompute, gen, gen_args):
+    """The eager step of :func:`heun_step`."""
     def d(Xc):
         return _deriv(engine, pw_int, pw_friction, fix_mode, precompute,
                       Xc, old_v, n, cube_size, fix_point, gen, gen_args)

@@ -22,6 +22,9 @@ allocation, no clock read.  Spans and counters named ``setup.*`` (the
 kernels' build and load, once a process) record whether tracing is on
 or not.  Work handed to another thread records there if :func:`carry`
 wrapped it while tracing was on; such spans go into the table only.
+Inside a :func:`tally` block the counts made on its thread go to the
+block's own dict instead of the table (a CUDA graph's capture launches
+nothing; its replays count what it launches).
 
     >>> with tracing():
     ...     frame(state, 0.0)
@@ -39,7 +42,7 @@ import torch
 from torch.autograd import _profiler_enabled
 
 __all__ = ["StepTimer", "trace", "span", "spanned", "count", "tracing",
-           "spans", "counters", "clear", "enabled", "carry"]
+           "spans", "counters", "clear", "enabled", "carry", "tally"]
 
 # names that record whether tracing is on or not
 SETUP = "setup."
@@ -49,7 +52,8 @@ _spans = {}          # name -> [count, total_s, self_s]
 _counters = {}       # name -> value
 _depth = 0           # tracing() blocks open, on any thread
 _carried = 0         # carry()'d calls running, on any thread
-_local = threading.local()      # .stack: open spans; .carried: bool
+_local = threading.local()      # .stack: open spans; .carried: bool;
+#                                 .tally: the open tally() block's dict
 
 
 def enabled():
@@ -127,8 +131,13 @@ def spanned(name):
 
 
 def count(name, k=1):
-    """Add ``k`` to the counter ``name`` while tracing is on."""
-    if enabled() or name.startswith(SETUP):
+    """Add ``k`` to the counter ``name`` while tracing is on; inside a
+    :func:`tally` block, to the block's dict whether tracing is on or
+    not."""
+    t = getattr(_local, "tally", None)
+    if t is not None:
+        t[name] = t.get(name, 0) + k
+    elif enabled() or name.startswith(SETUP):
         with _lock:
             _counters[name] = _counters.get(name, 0) + k
 
@@ -149,6 +158,19 @@ def tracing():
     finally:
         with _lock:
             _depth -= 1
+
+
+@contextlib.contextmanager
+def tally():
+    """Collect the counts made on this thread in the block into the dict
+    it yields (``{name: value}``), whether tracing is on or not; they do
+    not go into the table."""
+    before = getattr(_local, "tally", None)
+    _local.tally = out = {}
+    try:
+        yield out
+    finally:
+        _local.tally = before
 
 
 def spans():
