@@ -186,7 +186,9 @@ own line:
     teapot's 70,000-point cut;
 26. growth_w_wall from one relaxed state with the same draws on the
     gather Gabriel path and on K5 at C 16 and C 8 (the fullest cube each
-    step, the flags of each run);
+    step, the flags of each run); then the published run, 501 steps with
+    its frames through the example's entry points, flags 0 every step,
+    with the fullest cube and the most candidates in reach;
 27. thin x-cubes on the settled 500k state (``kernel_profile.THIN_500K``:
     half-width x-cubes, grid 128 x 64 x 64, C 5, ``x_split`` 2): K2 and
     K1 at an x reach of 2 cubes against their plain versions on its
@@ -2149,6 +2151,63 @@ def gww_capacity(dev):
     return k5_example_check(src, capacity=8)
 
 
+def gww_published(dev, seed=None):
+    """Phase 26 (b): the published growth_w_wall run (``n_time_steps`` + 1
+    steps from ``n_0`` cells, a frame every ``n_time_steps // 100`` steps)
+    through the example's ``setup``, ``start``, ``step`` and
+    ``write_frame`` on the card, from ``seed`` (the published ``SEED``
+    by default), its frames into a temporary directory.  ``take_step``
+    checks the flags every step (a flag raises).  Before each step it
+    reads the fullest cube of the growth lattice's grid and the most
+    cells within ``r_max`` of one cell (K5's candidates); prints them with
+    the final count and the run's seconds (the readings' syncs
+    included).  Returns (final count, fullest cube, most candidates)."""
+    import tempfile
+
+    import torch
+    from yalla_tpu_torch.ops.common import cube_ids
+    from yalla_tpu_torch.vtkio import Vtk_output
+    m = example("growth_w_wall")
+    seed = m.SEED if seed is None else seed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cells = m.setup(dev, seed)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    state = m.start(cells, seed=seed)
+    cell_type = m.cell_types(cells)
+    e = cells.engine
+    fullest = cand = 0
+    skip = max(1, state.n_steps // 100)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            Vtk_output("growth_w_wall", tmp, verbose=False) as out:
+        for t in range(state.n_steps + 1):
+            n = cells.get_d_n()
+            X = cells.d_X
+            fullest = max(fullest, int(torch.bincount(
+                cube_ids(X, n, cells.cube_size, e.grid_size)[:n]).max()))
+            P = torch.stack([a[:n] for a in X], 1)
+            reach2 = cells.cube_size ** 2
+            for i0 in range(0, n, 2048):
+                d2 = ((P[i0:i0 + 2048, None, :] - P[None]) ** 2).sum(-1)
+                cand = max(cand, int((d2 < reach2).sum(1).max()) - 1)
+            m.step(cells, state)
+            if t % skip == 0:
+                m.write_frame(out, cells, state, cell_type)
+        files = len(list(Path(tmp).glob("*.vtk")))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    n = cells.get_d_n()
+    print(f"phase 26 (b) the published growth_w_wall run from seed {seed}: "
+          f"setup {setup_s:.2f} s, {state.t} steps and {files} frames in "
+          f"{run_s:.2f} s with the readings; {m.n_0} -> {n} cells in "
+          f"{cells.n_pad} rows, flags 0 every step; the fullest cube held "
+          f"{fullest} (capacity {e.capacity}), the most candidates in reach "
+          f"{cand} (max_candidates {e.max_candidates})")
+    return n, fullest, cand
+
+
 def more_example_runs(dev):
     """Phase 25: each of ``MORE_RUNS``'s ``run`` on the card at its
     published size (from :func:`example_setup`: growth_w_wall's
@@ -3218,6 +3277,7 @@ def main():
     more_examples_gpu_vs_cpu(dev)
     more_launches, k5_example = more_example_runs(dev)
     gww_capacity(dev)
+    gww_published(dev)
 
     # ---- the rest of the lattice integrator: thin x-cubes, slot-space
     # rebinning, the resident cadence, and all of them against the CPU --

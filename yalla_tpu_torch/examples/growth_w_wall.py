@@ -9,7 +9,14 @@ protrusions, on the Gabriel engine.
 
 The unrelaxed seed ball first relaxes against the wall on a Gabriel
 engine of its own with the lattice kernel opted out (``lattice=False``,
-the JAX example's choice: the windowed Gabriel pass, plain torch).  The
+the JAX example's choice: the windowed Gabriel pass, plain torch), which
+takes ``RELAX_CANDIDATES`` = 160 candidates a cell where the JAX example
+leaves the engine's 100: the ball, folded into the half-space above the
+wall, holds twice the packing's density, and its most crowded cell has
+95 others within reach on average (1,000 seeds: 88 to 113, above 100 for
+one seed in six; yalla's 100-entry array overruns there, the port's flag
+refuses it).  The count falls below 30 within the relaxation, and the
+candidates the test keeps are the same whatever the cap above them.  The
 growth then
 runs on the JAX example's Gabriel engine (grid 64, row_cap 64), with the
 lattice's capacity ``CAPACITY`` = 16 where the JAX example leaves the
@@ -53,6 +60,7 @@ n_time_steps = 500
 relax_steps = 101
 SEED = 15
 CAPACITY = 16
+RELAX_CANDIDATES = 160
 
 
 def want_fn(X, props, rnd, i, n):
@@ -67,10 +75,11 @@ def child_fn(X, props, direction, i):
     return X, daughter
 
 
-def seed_ball(device="cuda"):
+def seed_ball(device="cuda", seed=SEED):
     """The growth's ``Solution`` holding the wall node at z = -mean_dist
-    and an unrelaxed ball of ``n_0 - 1`` cells above the wall."""
-    rng = np.random.default_rng(SEED)
+    and an unrelaxed ball of ``n_0 - 1`` cells above the wall, drawn from
+    ``seed``."""
+    rng = np.random.default_rng(seed)
     cells = Solution(Float3, n_max, device=device,
                      engine=GabrielEngine(grid_size=64, row_cap=64,
                                           capacity=CAPACITY))
@@ -86,12 +95,13 @@ def seed_ball(device="cuda"):
 
 def relax(cells):
     """``relax_steps`` steps of the seed ball against the wall (ref
-    :172-174) on a Gabriel engine sized for its density (row_cap 128, the
-    lattice kernel opted out, so it runs the windowed Gabriel pass, as the
-    JAX example's relaxation does); the relaxed state and its old_v go
-    back into ``cells``."""
+    :172-174) on a Gabriel engine sized for its density (row_cap 128,
+    ``RELAX_CANDIDATES`` candidates, the lattice kernel opted out, so it
+    runs the windowed Gabriel pass, as the JAX example's relaxation does);
+    the relaxed state and its old_v go back into ``cells``."""
     tmp = Solution(Float3, n_max, n_pad=cells.n_pad, device=cells.device,
                    engine=GabrielEngine(grid_size=64, row_cap=128,
+                                        max_candidates=RELAX_CANDIDATES,
                                         lattice=False))
     tmp.h_X, tmp.h_n = cells.h_X, n_0
     tmp.copy_to_device()
@@ -104,22 +114,22 @@ def relax(cells):
     cells.d_old_v = tmp.d_old_v
 
 
-def setup(device="cuda"):
-    """The seed ball, relaxed against the wall."""
-    cells = seed_ball(device)
+def setup(device="cuda", seed=SEED):
+    """The seed ball drawn from ``seed``, relaxed against the wall."""
+    cells = seed_ball(device, seed)
     relax(cells)
     return cells
 
 
-def start(cells, n_steps=None):
+def start(cells, n_steps=None, seed=SEED):
     """A run's state: the step index, the protrusions (their generator
-    seeded ``SEED``, ``n_0`` rows live) and the divisions' generator
-    (seeded ``SEED``)."""
+    seeded ``seed``, ``n_0`` rows live) and the divisions' generator
+    (seeded ``seed``)."""
     dev = cells.device
-    links = Links(n_max, protrusion_strength, seed=SEED, device=dev)
+    links = Links(n_max, protrusion_strength, seed=seed, device=dev)
     links.set_d_n(n_0)
     g = torch.Generator(device=dev)
-    g.manual_seed(SEED)
+    g.manual_seed(seed)
     return SimpleNamespace(
         t=0, n_steps=n_time_steps if n_steps is None else n_steps,
         links=links, generator=g)
@@ -149,20 +159,33 @@ def step(cells, state, draws=None):
     state.t += 1
 
 
-def run(cells, n_steps=None):
-    """``n_steps + 1`` steps, a frame every ``n_steps // 100``."""
-    state = start(cells, n_steps)
+def cell_types(cells):
+    """The frames' ``cell_type`` property: 0 for the wall node, 1 for the
+    mesenchyme."""
     cell_type = Property(cells.n_pad, "cell_type", device=cells.device)
     cell_type.h_prop[0] = 0   # wall_node
     cell_type.h_prop[1:] = 1  # mesenchyme
+    return cell_type
+
+
+def write_frame(output, cells, state, cell_type):
+    """One frame's file: the positions, the protrusions and the cell
+    types."""
+    output.write_positions(cells)
+    output.write_links(state.links)
+    output.write_property(cell_type)
+
+
+def run(cells, n_steps=None):
+    """``n_steps + 1`` steps, a frame every ``n_steps // 100``."""
+    state = start(cells, n_steps)
+    cell_type = cell_types(cells)
     skip = max(1, state.n_steps // 100)
     with Vtk_output("growth_w_wall") as output:
         for t in range(state.n_steps + 1):
             step(cells, state)
             if t % skip == 0:
-                output.write_positions(cells)
-                output.write_links(state.links)
-                output.write_property(cell_type)
+                write_frame(output, cells, state, cell_type)
     return state
 
 

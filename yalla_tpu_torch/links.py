@@ -29,6 +29,7 @@ import torch
 from .dtypes import device_of, pt_zeros_like
 from .ops.grid_xla import _row_offsets, build_grid
 from .solvers import GenericForce
+from .utils.profiling import span, spanned
 
 __all__ = ["Links", "Draws", "cube_draws", "uniforms",
            "random_cube_neighbours", "linear_force", "link_forces",
@@ -144,11 +145,13 @@ class Links:
         return factory(self.generator if generator is None else generator,
                        self.n_pad, self.device)
 
+    @spanned("rewiring.update")
     def update(self, rule, cells, draws=None):
         """Protrusion rewiring (ref e.g. ``examples/intercalation.cu:32-56``):
         ``rule(a, b, X, n_cells, draws) -> (a', b')`` on every link row;
         rows past the active count keep their links.  ``draws`` defaults to
-        :meth:`draws` of the rule."""
+        :meth:`draws` of the rule.  Traced, the call (its draws and the
+        rule) is the span ``rewiring.update``."""
         if draws is None:
             draws = self.draws(rule)
         live = torch.arange(self.n_pad, device=self.d_a.device) < self.d_n
@@ -206,14 +209,22 @@ def _link_dX(force, X, args):
                      for z, fa, fb in zip(pt_zeros_like(X), dFa, dFb)))
 
 
+def _link_force_fn(force):
+    """The generic force of the links alone, the span ``links.forces``."""
+    def fn(X, n, args):
+        with span("links.forces"):
+            return _link_dX(force, X, args)
+    return fn
+
+
 def link_forces(links: Links, force=linear_force, fields=None):
     """GenericForce applying ``force`` over the link table
     (ref links.cuh:128-140).  ``fields`` names the Pt fields it writes
     (x, y, z for the default ``linear_force``)."""
     if fields is None and force is linear_force:
         fields = ("x", "y", "z")
-    return GenericForce(fn=lambda X, n, args: _link_dX(force, X, args),
-                        args=links.state, fields=fields)
+    return GenericForce(fn=_link_force_fn(force), args=links.state,
+                        fields=fields)
 
 
 # --------------------------------------------------------------------------
@@ -230,9 +241,11 @@ def xy_wall_relu_force(X, i, wall_idx):
     return torch.where(interacting, F, 0.0), interacting
 
 
+@spanned("links.forces")
 def _wall_dX(w_force, link_force, X, n_cells, args):
     """Wall-node forces, plus the link forces when ``link_force`` is
-    given (then ``args = (link_args, wall_idx)``)."""
+    given (then ``args = (link_args, wall_idx)``).  Traced, a call is the
+    span ``links.forces``."""
     if link_force is not None:
         link_args, wall_idx = args
         dX = _link_dX(link_force, X, link_args)

@@ -186,14 +186,16 @@ def _keep(Ti, Tc, valid, cs2, gc2):
 
 def gabriel_lattice_plain(pw_int, pw_friction, X, old_v, n, cube_size, *,
                           grid_size, capacity, max_candidates=20,
-                          gabriel_coefficient=0.8):
+                          gabriel_coefficient=0.8, lay=None):
     """Plain torch version of the Gabriel lattice pass, generic over the
     force: a ``[B, 27 C]`` candidate block per block of occupied slots,
     first-NC compaction, the ``[B, NC, NC]`` midpoint test and
-    ``evaluate_pairs`` on the kept pairs and on the diagonal."""
+    ``evaluate_pairs`` on the kept pairs and on the diagonal.  ``lay`` is
+    the state's lattice build where the caller made it."""
     NC = int(max_candidates)
     cs2, gc2 = _squares(cube_size, gabriel_coefficient)
-    lay = lattice_build(X, old_v, n, cube_size, grid_size, capacity, 0)
+    if lay is None:
+        lay = lattice_build(X, old_v, n, cube_size, grid_size, capacity, 0)
     T, pid = lay.T, lay.pid
     n_pad = lay.slot_of.shape[0]
     i_all = torch.nonzero(pid < n_pad).squeeze(1)
@@ -236,17 +238,20 @@ def gabriel_lattice_plain(pw_int, pw_friction, X, old_v, n, cube_size, *,
 
 def gabriel_lattice_pallas(pw_int, pw_friction, X, old_v, n, cube_size, *,
                            grid_size, capacity, max_candidates=20,
-                           gabriel_coefficient=0.8):
+                           gabriel_coefficient=0.8, lay=None):
     """Gabriel lattice wrapper: launches ``csrc/gabriel_pair.cu`` for CUDA
     tensors, runs :func:`gabriel_lattice_plain` for CPU tensors, raises for
     anything else; a launch counts in ``kernels.gabriel_pair``
     (``utils.profiling``).  The kernel takes compact sets of at most
     ``GABRIEL_MAX_NC`` and writes the rows of the ids that hold a slot;
-    the rest stay at the zeros the wrapper fills."""
+    the rest stay at the zeros the wrapper fills.  ``lay`` is the state's
+    lattice build (``lattice_build(..., extras_cap=0)``) where the caller
+    made it (``GabrielEngine`` times the two apart); else the wrapper
+    builds it."""
     dev = X.x.device
     kw = dict(grid_size=grid_size, capacity=capacity,
               max_candidates=max_candidates,
-              gabriel_coefficient=gabriel_coefficient)
+              gabriel_coefficient=gabriel_coefficient, lay=lay)
     if dev.type == "cpu":
         return gabriel_lattice_plain(pw_int, pw_friction, X, old_v, n,
                                      cube_size, **kw)
@@ -263,7 +268,8 @@ def gabriel_lattice_pallas(pw_int, pw_friction, X, old_v, n, cube_size, *,
     _, gc2 = _squares(cube_size, gabriel_coefficient)
     gx, gy, gz = grid_dims(grid_size)
     plan = gabriel_plan((gx, gy, gz), capacity, NC)
-    lay = lattice_build(X, old_v, n, cube_size, grid_size, capacity, 0)
+    if lay is None:
+        lay = lattice_build(X, old_v, n, cube_size, grid_size, capacity, 0)
     n_slots = lay.pid.shape[0]
     n_pad = lay.slot_of.shape[0]
     f32 = torch.float32

@@ -140,7 +140,9 @@ class GabrielEngine:
     ``(i_offset, i_size)`` of the sharded cells path, run the gather form
     ``gabriel_pairwise``: K5 and the windowed pass sum the whole
     population only.  ``z_block`` is the TPU kernel's block height, read
-    only by :meth:`_lattice_fits`."""
+    only by :meth:`_lattice_fits`.  Traced, the lattice route's build
+    (the sort glue and the pour K2) is the span ``gabriel.build`` and its
+    pair pass (K5's wrapper) ``gabriel.pair``."""
     grid_size: int = 50
     row_cap: int = 32
     gabriel_coefficient: float = 0.8
@@ -167,11 +169,16 @@ class GabrielEngine:
             else X.x.device.type == "cuda"
         if use_lattice and _whole(i_offset, i_size):
             from .ops.gabriel_pallas import gabriel_lattice_pallas
-            return gabriel_lattice_pallas(
-                pw_int, pw_friction, X, old_v, n, cube_size,
-                grid_size=self.grid_size, capacity=self.capacity,
-                max_candidates=self.max_candidates,
-                gabriel_coefficient=self.gabriel_coefficient)
+            from .ops.lattice_xla import lattice_build
+            with span("gabriel.build"):
+                lay = lattice_build(X, old_v, n, cube_size, self.grid_size,
+                                    self.capacity, 0)
+            with span("gabriel.pair"):
+                return gabriel_lattice_pallas(
+                    pw_int, pw_friction, X, old_v, n, cube_size,
+                    grid_size=self.grid_size, capacity=self.capacity,
+                    max_candidates=self.max_candidates,
+                    gabriel_coefficient=self.gabriel_coefficient, lay=lay)
         if self.windowed and _whole(i_offset, i_size):
             return gabriel_windowed(
                 pw_int, pw_friction, X, old_v, n, cube_size,

@@ -153,6 +153,7 @@ class Vtk_output:
         return _snapshot(getattr(src, field), self.n_points)
 
     # -- positions (must be written first, ref vtk.cuh:93-135) --------------
+    @spanned("output.submit")
     def write_positions(self, points, mask=None):
         if self._pool is None:
             points.copy_to_host()
@@ -207,6 +208,7 @@ class Vtk_output:
         return started, self._frame, self._current_path
 
     # -- links (if written, second; ref vtk.cuh:137-145) --------------------
+    @spanned("output.submit")
     def write_links(self, links):
         if self._pool is None:
             links.copy_to_host()
@@ -374,6 +376,7 @@ class Vtk_output:
                   f"done ({n} points)        ", end="\r", flush=True)
 
     # -- properties (ref vtk.cuh:189-214) -------------------------------------
+    @spanned("output.submit")
     def write_property(self, prop):
         if self._pool is None:
             src = prop.copy_to_host()
