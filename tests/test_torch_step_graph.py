@@ -132,9 +132,9 @@ def test_step_graph_runs_a_key_seen_once_eagerly_and_bounds_what_it_keeps():
         assert step_graph.run(("fresh", k), body, (), (), k) == ((), (), {})
     assert calls == list(range(3 * step_graph._MAX_SEEN))
     assert step_graph.keys() == []
-    assert len(step_graph._seen) == step_graph._MAX_SEEN
+    assert len(step_graph._steps.seen) == step_graph._MAX_SEEN
     step_graph.clear()
-    assert not step_graph._seen
+    assert not step_graph._steps.seen
 
 
 def test_tally_keeps_counts_off_the_table():
@@ -219,6 +219,7 @@ def test_graph_step_is_the_eager_step_bit_for_bit(cuda, monkeypatch):
         counters = profiling.counters()
     with monkeypatch.context() as m:
         m.setattr(solvers, "step_graph_key", lambda *args: None)
+        m.setattr(solvers, "segment_key", lambda *args: None)
         with profiling.tracing():
             want, want_errs, want_steps = frame_steps(frame, state,
                                                       monkeypatch)

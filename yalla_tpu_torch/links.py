@@ -4,7 +4,10 @@ Counterpart of ``yalla_tpu/links.py`` (ref links.cuh).  A link table is a
 fixed-capacity pair of index arrays ``(a, b)`` with its own active count;
 ``a == b`` marks an inactive link (ref links.cuh:121-122).  Forces reach
 both endpoints by ``index_add_`` (the reference's ``atomicAdd``,
-links.cuh:105-110) and enter the solver through the ``GenericForce`` hook.
+links.cuh:105-110) and enter the solver through the ``GenericForce`` hook;
+the builders declare a ``capture_key`` (their code reads nothing back, nor
+may the ``force`` and ``w_force`` given them), so that on the card a step
+captures them with its glue.
 On CUDA tensors ``index_add_`` fixes no summation order, so link and wall
 forces agree with the CPU to f32 rounding, not bit for bit.
 
@@ -191,8 +194,17 @@ def linear_force(Xa, Xb, r, dist, strength):
     return dFa, dFb
 
 
+def _at(a, i):
+    """``a[i]`` for an int ``i`` or a 0-d int64 device tensor (no
+    readback)."""
+    if isinstance(i, torch.Tensor):
+        return a.index_select(0, i.reshape(1)).reshape(())
+    return a[i]
+
+
 def _link_dX(force, X, args):
-    """The link forces of ``args = (a, b, n_links, strength)`` on X."""
+    """The link forces of ``args = (a, b, n_links, strength)`` on X
+    (``n_links`` an int or a 0-d int64 device tensor)."""
     a, b, n_links, strength = args
     live = (torch.arange(a.shape[0], device=a.device) < n_links) & (a != b)
     Xa = type(X)(*(f[a] for f in X))
@@ -224,7 +236,8 @@ def link_forces(links: Links, force=linear_force, fields=None):
     if fields is None and force is linear_force:
         fields = ("x", "y", "z")
     return GenericForce(fn=_link_force_fn(force), args=links.state,
-                        fields=fields)
+                        fields=fields,
+                        capture_key=("link_forces", force, fields))
 
 
 # --------------------------------------------------------------------------
@@ -234,7 +247,7 @@ def link_forces(links: Links, force=linear_force, fields=None):
 def xy_wall_relu_force(X, i, wall_idx):
     """ReLU band force on point-to-plane distance for a wall normal to z
     (ref links.cuh:157-169).  Returns (F_z per point, interacting mask)."""
-    dist_wall = torch.abs(X.z - X.z[wall_idx])
+    dist_wall = torch.abs(X.z - _at(X.z, wall_idx))
     interacting = (dist_wall < 1.0) & (i != wall_idx)
     F = torch.clamp(0.8 - dist_wall, min=0) - torch.clamp(dist_wall - 0.8,
                                                           min=0)
@@ -244,8 +257,9 @@ def xy_wall_relu_force(X, i, wall_idx):
 @spanned("links.forces")
 def _wall_dX(w_force, link_force, X, n_cells, args):
     """Wall-node forces, plus the link forces when ``link_force`` is
-    given (then ``args = (link_args, wall_idx)``).  Traced, a call is the
-    span ``links.forces``."""
+    given (then ``args = (link_args, wall_idx)``).  The counts (``n_cells``,
+    the links' and ``wall_idx``) are ints or 0-d int64 device tensors.
+    Traced, a call is the span ``links.forces``."""
     if link_force is not None:
         link_args, wall_idx = args
         dX = _link_dX(link_force, X, link_args)
@@ -266,8 +280,12 @@ def _wall_dX(w_force, link_force, X, n_cells, args):
     upd = {}
     for f in ("x", "y", "z"):
         arr = getattr(dX, f).clone()
-        val = arr[wall_idx] + (wall_reaction if f == "z" else 0.0)
-        arr[wall_idx] = val * scale
+        val = (_at(arr, wall_idx) + (wall_reaction if f == "z" else 0.0)) \
+            * scale
+        if isinstance(wall_idx, torch.Tensor):
+            arr.index_put_((wall_idx.reshape(1),), val.reshape(1))
+        else:
+            arr[wall_idx] = val
         upd[f] = arr
     return dX.replace(**upd)
 
@@ -276,7 +294,8 @@ def wall_forces(wall_idx, w_force=xy_wall_relu_force, fields=("x", "y", "z")):
     """Wall node, no links (ref links.cuh:198-210)."""
     return GenericForce(
         fn=lambda X, n, args: _wall_dX(w_force, None, X, n, args),
-        args=int(wall_idx), fields=fields)
+        args=int(wall_idx), fields=fields,
+        capture_key=("wall_forces", w_force, fields))
 
 
 def link_wall_forces(links: Links, wall_idx, l_force=linear_force,
@@ -286,4 +305,5 @@ def link_wall_forces(links: Links, wall_idx, l_force=linear_force,
         fields = ("x", "y", "z")
     return GenericForce(
         fn=lambda X, n, args: _wall_dX(w_force, l_force, X, n, args),
-        args=(links.state, int(wall_idx)), fields=fields)
+        args=(links.state, int(wall_idx)), fields=fields,
+        capture_key=("link_wall_forces", l_force, w_force, fields))

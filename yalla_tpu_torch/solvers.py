@@ -16,7 +16,9 @@ with every cadence, thin x-cubes and mover routing
 ``ops.lattice_xla.lattice_heun_steps``, which ``take_steps`` runs),
 ``solver="auto"``, the switch of ``solver="grid"`` to the lattice above
 20k points, and ``Solution.validate``.  On the card a Heun step on the
-kernel lattice engine runs as a CUDA graph (``step_graph.py``).
+kernel lattice engine runs as a CUDA graph (``step_graph.py``); any other
+step runs its two pair passes eagerly and the glue after each as a CUDA
+graph, where its generic force, if any, declares ``capture_key``.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ from .utils.profiling import span, spanned
 
 __all__ = ["TileEngine", "GridEngine", "GabrielEngine", "LatticeEngine",
            "GenericForce", "Solution", "SimulationError", "heun_step",
-           "heun_steps", "step_graph_key", "friction_w_neighbour",
+           "heun_steps", "step_graph_key", "segment_key",
+           "friction_w_neighbour",
            "friction_on_background"]
 
 
@@ -293,10 +296,19 @@ class LatticeEngine:
 class GenericForce(NamedTuple):
     """A generic force with explicit state: ``fn(X, n, args) -> dX`` is
     added to the pair forces of every pass, before the friction mixing.
-    ``fields`` names the Pt fields it writes (``None``: all)."""
+    ``fields`` names the Pt fields it writes (``None``: all).
+
+    ``capture_key``, a hashable value or None (the default), names what
+    ``fn`` computes from ``args`` and promises that it reads nothing
+    back: two forces with equal keys compute the same function.  On the
+    card a step then captures the force with the glue around it
+    (:func:`segment_key`), ``n`` and each int in ``args`` as a 0-d int64
+    device tensor, each float as it is; a force without one runs
+    eagerly."""
     fn: Callable[..., Any]
     args: Any = None
     fields: tuple | None = None
+    capture_key: Any = None
 
 
 def _as_generic(gen_forces):
@@ -365,12 +377,14 @@ def add_rhs(F, sum_f, sum_v):
                      z=F.z + sum_v[2] * inv)
 
 
-def _deriv(engine, pw_int, pw_friction, fix_mode, precompute,
-           X, old_v, n, cube_size, fix_point, gen=None, gen_args=None):
+def _glue(pw_int, fix_mode, fix_point, X, Xa, out, n, gen, gen_args):
+    """The derivative from a pair pass's outputs ``out`` on ``Xa`` (X
+    augmented): the derived aux and the post-pair transform, the flags'
+    max, the generic force, the friction term, the mask, the momentum
+    fix and the non-finite flag.  ``n`` and the ints of ``gen_args`` are
+    Python ints, or 0-d device tensors inside a segment's graph."""
+    F, sum_f, sum_v, aux = out
     active = torch.arange(X.x.shape[0], device=X.x.device) < n
-    Xa = augment(X, n, precompute)
-    F, sum_f, sum_v, aux = engine.pairwise(
-        pw_int, pw_friction, Xa, old_v, n, cube_size)
     aux = apply_derived_aux(pw_int, aux, sum_f)
     F, aux = apply_post_pair(pw_int, F, aux, Xa)
     aux = {k: (v.max() if k.startswith(ERR_PREFIX) else v)
@@ -390,24 +404,50 @@ def _deriv(engine, pw_int, pw_friction, fix_mode, precompute,
 def step_graph_key(engine, pw_int, pw_friction, fix_mode, X, old_v, dt,
                    cube_size, fix_point=0, precompute=None, gen=None):
     """The key of the step's CUDA graph (:mod:`.step_graph`), or None
-    where :func:`heun_step` runs eagerly.  A step is captured on a
-    ``LatticeEngine`` (not a subclass) with ``pallas``, on CUDA tensors,
-    with no generic force (user code, which may read back) and with
-    ``dt``, ``cube_size`` and ``fix_point`` Python numbers.  The key is
-    what the capture bakes in: the engine (by value), the force, the
-    friction and the precompute (by identity), the parameters of the
-    force's CUDA functor (by value), the momentum fix, ``dt``, the cube
-    size, the point type, the shapes, dtypes and device of the state."""
+    where :func:`heun_step` does not capture the whole step.  A step is
+    captured on a ``LatticeEngine`` (not a subclass) with ``pallas``, on
+    CUDA tensors, with no generic force and with ``dt``, ``cube_size``
+    and ``fix_point`` Python numbers.  The key is what the capture bakes
+    in: the engine (by value), the force, the friction and the precompute
+    (by identity), the parameters of the force's CUDA functor (by value),
+    the momentum fix, ``dt``, the cube size, the point type, the shapes,
+    dtypes and device of the state."""
     if type(engine) is not LatticeEngine or not engine.pallas \
             or gen is not None:
         return None
     state = (*X, *old_v)
+    return _key(state, engine, pw_int, pw_friction, precompute, fix_mode,
+                fix_point, dt, cube_size, type(X),
+                tuple((tuple(a.shape), a.dtype) for a in state), X.x.device)
+
+
+def segment_key(engine, pw_int, pw_friction, fix_mode, X, dt, cube_size,
+                fix_point=0, precompute=None, gen=None):
+    """The key of the step's glue segments (:func:`.step_graph.segment`),
+    or None where :func:`heun_step` runs its glue eagerly.  The glue is
+    captured on CUDA tensors, with ``dt``, ``cube_size`` and
+    ``fix_point`` Python numbers, and with no generic force or one that
+    declares ``capture_key`` (user code that declares none may read
+    back).  The key holds what :func:`step_graph_key` holds but the
+    state's shapes, which the segments' inputs add (``step_graph.
+    cache_key``), and the force's ``capture_key``."""
+    if gen is not None and gen.capture_key is None:
+        return None
+    return _key(X, engine, pw_int, pw_friction, precompute, fix_mode,
+                fix_point, dt, cube_size, type(X),
+                None if gen is None else gen.capture_key)
+
+
+def _key(state, engine, pw_int, pw_friction, precompute, fix_mode,
+         fix_point, dt, cube_size, *rest):
+    """The graph key of a step on ``state`` with ``rest`` appended, or
+    None off CUDA, where ``dt``, ``cube_size`` or ``fix_point`` is not a
+    Python number, or where the key does not hash."""
     if not all(a.is_cuda for a in state) or not all(
             isinstance(v, (int, float)) for v in (dt, cube_size, fix_point)):
         return None
     key = (engine, pw_int, pw_friction, precompute, _functor_values(pw_int),
-           fix_mode, fix_point, type(dt), dt, cube_size, type(X),
-           tuple((tuple(a.shape), a.dtype) for a in state), X.x.device)
+           fix_mode, fix_point, type(dt), dt, cube_size, *rest)
     try:
         hash(key)
     except TypeError:
@@ -433,36 +473,67 @@ def heun_step(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
     """One 2nd-order step: ``(X, old_v) -> (X', old_v', aux)``.  ``gen``
     is a ``GenericForce`` (its ``args`` ignored) called with
     ``gen_args``.  Where :func:`step_graph_key` gives a key, the step is
-    a CUDA graph's replay (:mod:`.step_graph`): the same kernels on the
-    same inputs, bit for bit the eager step."""
-    def body(Xc, ovc, nc):
+    a CUDA graph's replay (:mod:`.step_graph`); else, where
+    :func:`segment_key` gives one, the glue after each of its two pair
+    passes is (the passes run eagerly): the same kernels on the same
+    inputs, bit for bit the eager step."""
+    def body(Xc, ovc, nc, segment=_eager):
         return _heun(engine, pw_int, pw_friction, fix_mode, Xc, ovc, nc, dt,
-                     cube_size, fix_point, precompute, gen, gen_args)
+                     cube_size, fix_point, precompute, gen, gen_args,
+                     segment)
     key = step_graph_key(engine, pw_int, pw_friction, fix_mode, X, old_v,
                          dt, cube_size, fix_point, precompute, gen)
+    if key is not None:
+        return step_graph.run(key, body, X, old_v, n)
+    key = segment_key(engine, pw_int, pw_friction, fix_mode, X, dt,
+                      cube_size, fix_point, precompute, gen)
     if key is None:
         return body(X, old_v, n)
-    return step_graph.run(key, body, X, old_v, n)
+    return body(X, old_v, n, lambda tag, fn, tree, copy:
+                step_graph.segment(key + (tag,), fn, tree, copy))
+
+
+def _eager(tag, body, tree, copy):
+    """A segment of :func:`_heun` run as it stands."""
+    return body(tree)
 
 
 def _heun(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
-          cube_size, fix_point, precompute, gen, gen_args):
-    """The eager step of :func:`heun_step`."""
-    def d(Xc):
-        return _deriv(engine, pw_int, pw_friction, fix_mode, precompute,
-                      Xc, old_v, n, cube_size, fix_point, gen, gen_args)
-    dX, aux1 = d(X)
-    X1 = X + dX * dt
-    dX1, aux = d(X1)
-    # failure flags must survive from BOTH passes
-    for k in aux:
-        if k.startswith(ERR_PREFIX):
-            aux[k] = torch.maximum(aux[k], aux1[k])
-    X_new = X + (dX + dX1) * (0.5 * dt)
-    old_v_new = Float3(x=(dX.x + dX1.x) * 0.5,
-                       y=(dX.y + dX1.y) * 0.5,
-                       z=(dX.z + dX1.z) * 0.5)
-    return X_new, old_v_new, aux
+          cube_size, fix_point, precompute, gen, gen_args, segment=_eager):
+    """The step of :func:`heun_step`: the two pair passes called here, the
+    glue after each as ``segment(tag, body, inputs, copy) ->
+    body(inputs)`` (:func:`.step_graph.segment` replays it; ``copy``: its
+    outputs leave the step)."""
+    pt = type(X)
+
+    def first(t):
+        Xa, out, nc, args = t
+        X0 = truncate_aug(Xa, pt)
+        dX, aux1 = _glue(pw_int, fix_mode, fix_point, X0, Xa, out, nc, gen,
+                         args)
+        return dX, aux1, X0 + dX * dt
+
+    def second(t):
+        X0, X1a, dX, aux1, out, nc, args = t
+        dX1, aux = _glue(pw_int, fix_mode, fix_point, truncate_aug(X1a, pt),
+                         X1a, out, nc, gen, args)
+        # failure flags must survive from BOTH passes
+        for k in aux:
+            if k.startswith(ERR_PREFIX):
+                aux[k] = torch.maximum(aux[k], aux1[k])
+        X_new = X0 + (dX + dX1) * (0.5 * dt)
+        old_v_new = Float3(x=(dX.x + dX1.x) * 0.5,
+                           y=(dX.y + dX1.y) * 0.5,
+                           z=(dX.z + dX1.z) * 0.5)
+        return X_new, old_v_new, aux
+
+    Xa = augment(X, n, precompute)
+    out = engine.pairwise(pw_int, pw_friction, Xa, old_v, n, cube_size)
+    dX, aux1, X1 = segment("first", first, (Xa, out, n, gen_args), False)
+    X1a = augment(X1, n, precompute)
+    out = engine.pairwise(pw_int, pw_friction, X1a, old_v, n, cube_size)
+    return segment("second", second, (X, X1a, dX, aux1, out, n, gen_args),
+                   True)
 
 
 def heun_steps(n_steps, engine, pw_int, pw_friction, fix_mode, X, old_v, n,

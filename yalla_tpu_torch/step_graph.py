@@ -1,4 +1,4 @@
-"""The Heun step as a CUDA graph: one replay a step.
+"""The Heun step, or the glue between its pair passes, as CUDA graphs.
 
 On the card, a Heun step on the kernel lattice engine is about 1,300
 device operations, each issued from Python: the host's issue, not the
@@ -8,20 +8,33 @@ kernels in the same order on the same inputs, so its results are bit for
 bit those of the eager step.  ``solvers.step_graph_key`` says which steps
 qualify and what their key holds: everything the capture bakes in.
 
+A step that does not qualify whole (another engine, a generic force)
+still issues hundreds of glue operations between its two pair passes,
+which stay eager Python calls: :func:`segment` captures each stretch of
+glue (``solvers.segment_key``; ``solvers._heun`` cuts the step), two
+segments a step.
+
 The first call with a key runs eagerly (the warm-up: K1's opt-in to its
-shared memory, the plans' caches, the allocator); the second captures the
-step and replays it; every later call copies its inputs into the graph's
-buffers (the count into a 0-d device tensor), replays, and returns copies
-of the graph's outputs, which the frame, the growth, the writer and the
-callers' own references hold past the next replay.  At most
-:data:`MAX_GRAPHS` graphs are kept, the least recently used evicted first
-with its memory pool; a key seen once costs a dict lookup.  The capture is
-thread-local (``capture_error_mode="thread_local"``): the asynchronous VTK
-writer's worker issues its own copies while a frame runs.
+shared memory, the plans' caches, the allocator); the second captures it
+and replays it; every later call copies its inputs into the graph's
+buffers (each Python int, a count, into a 0-d int64 device tensor),
+replays, and returns the graph's outputs: copies of them where they leave
+the step (the frame, the growth, the writer and the callers' own
+references hold them past the next replay), the graph's own tensors
+where the next segment copies them in before any later replay.  The key
+a graph is kept under adds the inputs' structure to the caller's: the
+containers, each tensor's shape, dtype and device, where the counts sit,
+and every other value (a float, a string) as it is.  At most
+:data:`MAX_GRAPHS` whole steps and :data:`MAX_SEGMENTS` segments are
+kept, the least recently used evicted first with its memory pool; a key
+seen once costs a dict lookup.  The capture is thread-local
+(``capture_error_mode="thread_local"``): the asynchronous VTK writer's
+worker issues its own copies while a frame runs.
 
 Counters (``utils.profiling``): ``integrator.graph_capture`` and
-``integrator.graph_replay`` (a capture's own replay is not counted as
-one); the launches counted while the step is captured
+``integrator.graph_replay`` for whole steps, ``integrator.segment_capture``
+and ``integrator.segment_replay`` for segments (a capture's own replay is
+not counted as one); the launches counted while a graph is captured
 (``kernels.lattice_pair``, ``kernels.pour``) are counted again at every
 replay, so those counters count launches that ran.
 """
@@ -33,84 +46,179 @@ import torch
 
 from .utils.profiling import count, tally
 
-__all__ = ["MAX_GRAPHS", "run", "keys", "clear"]
+__all__ = ["MAX_GRAPHS", "MAX_SEGMENTS", "run", "segment", "cache_key",
+           "keys", "segment_keys", "clear"]
 
-# graphs kept: the frame's engine's, and a resized engine's after a redo
+# whole steps kept: the frame's engine's, and a resized engine's after a
+# redo
 MAX_GRAPHS = 2
+# segments kept: two a step, for a relaxation's engine and force and for
+# the growth's
+MAX_SEGMENTS = 4
 # keys called once, kept so that their second call captures
 _MAX_SEEN = 8
-_graphs = OrderedDict()     # key -> _Graph, least recently used first
-_seen = OrderedDict()       # key -> None
+# the kinds of leaf in a structure
+_TENSOR, _COUNT, _VALUE = "tensor", "count", "value"
+
+
+def _flatten(tree, leaves, ids, counts=True):
+    """The structure of ``tree`` as a hashable tuple; its tensors (each
+    object once) and, with ``counts``, its ints go to ``leaves``."""
+    if isinstance(tree, torch.Tensor):
+        k = ids.get(id(tree))
+        if k is None:
+            k = ids[id(tree)] = len(leaves)
+            leaves.append(tree)
+        return (_TENSOR, k, tree.shape, tree.dtype, tree.device)
+    if counts and type(tree) is int:
+        leaves.append(tree)
+        return (_COUNT, len(leaves) - 1)
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(_flatten(a, leaves, ids, counts)
+                                  for a in tree))
+    if isinstance(tree, dict):
+        return (dict, tuple(tree), tuple(_flatten(a, leaves, ids, counts)
+                                         for a in tree.values()))
+    return (_VALUE, tree)
+
+
+def _build(spec, leaves):
+    """The tree of structure ``spec`` on ``leaves``."""
+    kind = spec[0]
+    if kind == _TENSOR or kind == _COUNT:
+        return leaves[spec[1]]
+    if kind == _VALUE:
+        return spec[1]
+    if kind is dict:
+        return dict(zip(spec[1], (_build(s, leaves) for s in spec[2])))
+    items = [_build(s, leaves) for s in spec[1]]
+    return kind(*items) if hasattr(kind, "_fields") else kind(items)
+
+
+def cache_key(key, tree):
+    """The key a graph of ``key`` on the inputs ``tree`` is kept under:
+    ``key`` (a tuple) and the inputs' structure, which holds no count's
+    value."""
+    return _keyed(key, tree)[0]
+
+
+def _keyed(key, tree):
+    """``(cache_key(key, tree), the inputs' leaves)``."""
+    leaves = []
+    return key + (_flatten(tree, leaves, {}),), leaves
 
 
 class _Graph:
-    """One captured step: its input buffers, the graph, its outputs and
+    """One captured body: its input buffers, the graph, its outputs and
     the counts made while it was captured."""
 
-    def __init__(self, body, X, old_v, n):
+    def __init__(self, body, spec, leaves, copy):
+        dev = next(a.device for a in leaves if isinstance(a, torch.Tensor))
         self.ins = [torch.empty(a.shape, dtype=a.dtype, device=a.device)
-                    for a in (*X, *old_v)]
-        self.n = torch.empty((), dtype=torch.int64, device=X.x.device)
-        self.load(X, old_v, n)
-        nx = len(X)
-        sX, sov = type(X)(*self.ins[:nx]), type(old_v)(*self.ins[nx:])
+                    if isinstance(a, torch.Tensor)
+                    else torch.empty((), dtype=torch.int64, device=dev)
+                    for a in leaves]
+        self.tensors = [k for k, a in enumerate(leaves)
+                        if isinstance(a, torch.Tensor)]
+        self.counts_at = [k for k, a in enumerate(leaves)
+                          if not isinstance(a, torch.Tensor)]
+        self.load(leaves)
+        self.copy = copy
         self.graph = torch.cuda.CUDAGraph()
         with tally() as self.counts, \
                 torch.cuda.graph(self.graph,
                                  capture_error_mode="thread_local"):
-            X2, ov2, aux = body(sX, sov, self.n)
-        self.types = (type(X2), len(X2), type(ov2), len(ov2), tuple(aux))
-        self.outs = [*X2, *ov2, *aux.values()]
+            out = body(_build(spec, self.ins))
+        self.outs = []
+        self.out_spec = _flatten(out, self.outs, {}, counts=False)
 
-    def load(self, X, old_v, n):
-        torch._foreach_copy_(self.ins, [*X, *old_v])
-        if isinstance(n, torch.Tensor):
-            self.n.copy_(n)
-        else:
-            self.n.fill_(int(n))
+    def load(self, leaves):
+        if self.tensors:
+            torch._foreach_copy_([self.ins[k] for k in self.tensors],
+                                 [leaves[k] for k in self.tensors])
+        for k in self.counts_at:
+            self.ins[k].fill_(leaves[k])
 
     def replay(self):
-        """Run the step; copies of its outputs as ``(X, old_v, aux)``."""
+        """Run the body; its outputs (copies of them with ``copy``)."""
         self.graph.replay()
         for name, k in self.counts.items():
             count(name, k)
-        outs = [torch.empty_like(a) for a in self.outs]
-        torch._foreach_copy_(outs, self.outs)
-        x_type, nx, v_type, nv, aux_keys = self.types
-        return (x_type(*outs[:nx]), v_type(*outs[nx:nx + nv]),
-                dict(zip(aux_keys, outs[nx + nv:])))
+        outs = self.outs
+        if self.copy:
+            outs = [torch.empty_like(a) for a in self.outs]
+            torch._foreach_copy_(outs, self.outs)
+        return _build(self.out_spec, outs)
+
+
+class _Cache:
+    """The graphs of one kind by key, least recently used first, at most
+    ``bound``; the keys called once; the counters ``<name>_capture`` and
+    ``<name>_replay``."""
+
+    def __init__(self, bound, name):
+        self.bound, self.name = bound, name
+        self.graphs = OrderedDict()     # key -> _Graph
+        self.seen = OrderedDict()       # key -> None
+
+    def run(self, key, body, tree, copy):
+        full, leaves = _keyed(key, tree)
+        try:
+            g = self.graphs.get(full)
+        except TypeError:               # a value that does not hash
+            return body(tree)
+        if g is not None:
+            self.graphs.move_to_end(full)
+            g.load(leaves)
+            count(self.name + "_replay")
+            return g.replay()
+        if full not in self.seen:
+            self.seen[full] = None
+            if len(self.seen) > _MAX_SEEN:
+                self.seen.popitem(last=False)
+            return body(tree)
+        del self.seen[full]
+        g = _Graph(body, full[-1], leaves, copy)
+        count(self.name + "_capture")
+        self.graphs[full] = g
+        if len(self.graphs) > self.bound:
+            self.graphs.popitem(last=False)
+        return g.replay()
+
+
+_steps = _Cache(MAX_GRAPHS, "integrator.graph")
+_segments = _Cache(MAX_SEGMENTS, "integrator.segment")
 
 
 def run(key, body, X, old_v, n):
     """``body(X, old_v, n) -> (X', old_v', aux)``, the step of ``key``:
     eagerly at the key's first call, captured at its second, replayed
     from then on (see the module docstring)."""
-    g = _graphs.get(key)
-    if g is not None:
-        _graphs.move_to_end(key)
-        g.load(X, old_v, n)
-        count("integrator.graph_replay")
-        return g.replay()
-    if key not in _seen:
-        _seen[key] = None
-        if len(_seen) > _MAX_SEEN:
-            _seen.popitem(last=False)
-        return body(X, old_v, n)
-    del _seen[key]
-    g = _Graph(body, X, old_v, n)
-    count("integrator.graph_capture")
-    _graphs[key] = g
-    if len(_graphs) > MAX_GRAPHS:
-        _graphs.popitem(last=False)
-    return g.replay()
+    return _steps.run(key, lambda t: body(*t), (X, old_v, n), True)
+
+
+def segment(key, body, tree, copy):
+    """``body(tree)``, a stretch of a step's glue, under ``key`` (a
+    tuple): eagerly at the key's first call, captured at its second,
+    replayed from then on; its outputs copied with ``copy``, else the
+    graph's own, which the next replay overwrites."""
+    return _segments.run(key, body, tree, copy)
 
 
 def keys():
-    """The keys of the graphs held, least recently used first."""
-    return list(_graphs)
+    """The keys of the whole steps' graphs held, least recently used
+    first."""
+    return [k[:-1] for k in _steps.graphs]
+
+
+def segment_keys():
+    """The keys of the segments' graphs held, least recently used
+    first."""
+    return [k[:-1] for k in _segments.graphs]
 
 
 def clear():
     """Drop every graph (and its memory pool) and every key seen."""
-    _graphs.clear()
-    _seen.clear()
+    for c in (_steps, _segments):
+        c.graphs.clear()
+        c.seen.clear()
