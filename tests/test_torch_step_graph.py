@@ -20,7 +20,8 @@ from yalla_tpu_torch.dtypes import Float3
 from yalla_tpu_torch.growth import lineage_init
 from yalla_tpu_torch.interop import load_settled
 from yalla_tpu_torch.models import branching as B
-from yalla_tpu_torch.ops.common import ERR_PREFIX, friction_w_neighbour
+from yalla_tpu_torch.ops.common import (ERR_PREFIX, friction_w_neighbour,
+                                        momentum_fix)
 from yalla_tpu_torch.ops.lattice_xla import lattice_build
 from yalla_tpu_torch.solvers import (GabrielEngine, GenericForce, GridEngine,
                                      LatticeEngine, TileEngine, heun_step,
@@ -284,20 +285,40 @@ def test_step_graph_keeps_two_graphs_and_evicts_the_oldest(cuda):
     step_graph.clear()
 
 
-@pytest.mark.gpu
+@pytest.fixture(params=["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def device(request):
+    if request.param == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device(request.param)
+
+
+@pytest.mark.parametrize("split", [False, True],
+                         ids=["device_count", "two_parts"])
 @pytest.mark.parametrize("n", [1, 3, 4097, 19_927, 32_767])
-def test_fix_components_same_bits_with_a_device_count(cuda, n):
-    g = torch.Generator(device=cuda)
+def test_fix_components_same_bits_with_a_device_count(device, n, split):
+    """``ops.common.momentum_fix``, the COM drift and the pinned point: a
+    count as an int and as a 0-d device tensor (the step's graph) give
+    the same bits; so do the state in one part and split in two, the
+    second with its stable ids as a tensor."""
+    g = torch.Generator(device=device)
     g.manual_seed(n)
-    dX = Float3(*(torch.randn(N_PAD, generator=g, device=cuda) * 10.0 ** e
+    dX = Float3(*(torch.randn(N_PAD, generator=g, device=device) * 10.0 ** e
                   for e in (-3, 0, 3)))
-    active = torch.arange(N_PAD, device=cuda) < n
-    n_dev = torch.full((), n, dtype=torch.int64, device=cuda)
+    active = torch.arange(N_PAD, device=device) < n
+    h = N_PAD // 3
+    n_dev = torch.full((), n, dtype=torch.int64, device=device)
     for mode in ("com", "com_z"):
-        want = solvers._fix_components(dX, n, active, mode, 0)
-        got = solvers._fix_components(dX, n_dev, active, mode, 0)
+        want, = momentum_fix([(dX, active, 0)], n, mode, h + 7)
+        if split:
+            ids = torch.arange(h, N_PAD, device=device)
+            parts = [(Float3(*(a[:h] for a in dX)), active[:h], 0),
+                     (Float3(*(a[h:] for a in dX)), active[h:], ids)]
+            got = Float3(*(torch.cat(a) for a in zip(
+                *momentum_fix(parts, n, mode, h + 7))))
+        else:
+            got, = momentum_fix([(dX, active, 0)], n_dev, mode, h + 7)
         for a, b in zip(got, want):
-            assert torch.equal(a, b), (mode, a, b)
+            assert torch.equal(a, b), mode
 
 
 @pytest.mark.gpu

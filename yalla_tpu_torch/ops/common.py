@@ -10,10 +10,20 @@ with ``r = Xi - Xj``, every argument a tensor (or a Pt of tensors) of one
 broadcastable pair-block shape.  ``aux`` channels are masked and summed
 over neighbours into named per-cell accumulators; keys starting with
 ``ERR_PREFIX`` are failure flags that ``Solution`` checks after a call.
+
+Below the pair passes, the Heun derivative that the port's four
+integrators share (``solvers.heun_step``, ``ops.lattice_xla.
+lattice_heun_steps``, ``parallel.spmd.make_sharded_step`` and
+``parallel.lattice_spmd.lattice_sharded_heun_steps``): a pass's sums to a
+derivative (:func:`derivative`), the momentum fix (:func:`momentum_fix`),
+the step's mean velocity (:func:`mean_v`) and the folds of the flags
+(:func:`fold_pair`, :func:`fold_steps`).
 """
 from __future__ import annotations
 
 import torch
+
+from ..dtypes import Float3, make_pt
 
 __all__ = [
     "friction_w_neighbour",
@@ -27,10 +37,22 @@ __all__ = [
     "grid_dims",
     "out_of_grid_mask",
     "split_force_output",
+    "augment",
+    "truncate_aug",
+    "nonfinite",
+    "add_rhs",
+    "derivative",
+    "momentum_fix",
+    "mean_v",
+    "fold_pair",
+    "fold_steps",
     "ERR_PREFIX",
 ]
 
 ERR_PREFIX = "__err_"
+# the lattice integrator's staleness measures, folded over steps as the
+# flags are
+STALE_PREFIX = "stale_"
 
 
 def friction_w_neighbour(Xi, r, dist, i, j):
@@ -174,3 +196,140 @@ def evaluate_pairs(pw_int, pw_friction, Xi, Xj, old_v_j, i, j, pair_mask,
     sum_v = tuple(_reduce(friction * v, sum_axes) for v in old_v_j)
     aux_sums = {k: msum(v) for k, v in aux.items()}
     return F, sum_friction, sum_v, aux_sums
+
+
+# --------------------------------------------------------------------------
+# The Heun derivative shared by the integrators (ref solvers.cuh:109-161,
+# 196-208, 226-275)
+# --------------------------------------------------------------------------
+
+def augment(X, n, precompute):
+    """Append derived per-point fields (e.g. polarity vectors) for the
+    duration of one pairwise pass; they flow through Xi / Xj / r."""
+    if precompute is None:
+        return X
+    aug = precompute(X, n)
+    AugT = make_pt(type(X).__name__ + "Aug",
+                   *(list(type(X)._fields[3:]) + list(aug.keys())))
+    return AugT(*X, *aug.values())
+
+
+def truncate_aug(F, orig_type):
+    """``F`` with the fields :func:`augment` appended cut off."""
+    if type(F).__name__ == orig_type.__name__:
+        return F
+    return orig_type(*tuple(F)[:len(orig_type._fields)])
+
+
+def nonfinite(pt):
+    """0-d bool tensor: any non-finite value in any field."""
+    return torch.stack([~torch.isfinite(a).all() for a in pt]).any()
+
+
+def add_rhs(F, sum_f, sum_v):
+    """Add the friction-weighted mean neighbour velocity to F's x, y, z
+    (ref add_rhs, solvers.cuh:146-161); no friction, no term."""
+    inv = torch.where(sum_f > 0, 1.0 / torch.where(sum_f > 0, sum_f, 1.0),
+                      0.0)
+    return F.replace(x=F.x + sum_v[0] * inv, y=F.y + sum_v[1] * inv,
+                     z=F.z + sum_v[2] * inv)
+
+
+def derivative(pw_int, out, Xa, pt, live, add_gen=None):
+    """``(dX, aux)`` of one pair pass, before the momentum fix.
+
+    ``out`` is the pass's ``(F, sum_f, sum_v, aux)`` over the rows of
+    ``Xa``, the state :func:`augment` gave; ``pt`` the point type of the
+    derivative.  The derived aux and the post-pair transform, the
+    augmented fields cut off, the generic force (``add_gen(F) -> F``,
+    which adds its dX in the rows' order), the friction term, and every
+    row not ``live`` zeroed."""
+    F, sum_f, sum_v, aux = out
+    aux = apply_derived_aux(pw_int, aux, sum_f)
+    F, aux = apply_post_pair(pw_int, F, aux, Xa)
+    F = truncate_aug(F, pt)
+    if add_gen is not None:
+        F = add_gen(F)
+    return mask_tree(add_rhs(F, sum_f, sum_v), live), aux
+
+
+# the components each fix mode takes from the COM drift; the others are
+# the pinned point's
+_COM_AXES = {"com": "xyz", "point": "", "com_z": "z"}
+
+
+def momentum_fix(parts, count, fix_mode, fix_point, psum=None):
+    """The derivatives of ``parts`` with the momentum fix subtracted from
+    x, y, z of their live rows (ref solvers.cuh:196-208, 240-253): each
+    component the COM drift, or the value at the stable id ``fix_point``
+    (``fix_mode`` "com", "point", or "com_z": x and y the point's, z the
+    drift).
+
+    ``parts`` is a list of ``(dX, live, ids)`` (a lattice and its
+    overflow extras): ``ids`` the stable id of each row, or an int, the
+    stable id of the first of rows in stable order.  ``count``, an int or
+    a 0-d device tensor, counts the live rows of every part and rank (at
+    least 1 is taken); ``psum``, where given, sums a tensor over the
+    ranks.  The sums are f64, so that the drift does not depend on how
+    the rows are split, and the drift is their product with the f64
+    reciprocal of ``count``: what the card computes for a division by a
+    host number, so a count on the host and one on the device give the
+    same bits."""
+    com = _COM_AXES.get(fix_mode)
+    if com is None:
+        raise ValueError(fix_mode)
+    tot = torch.stack([_sum64(parts, f, f in com, fix_point) for f in "xyz"])
+    if psum is not None:
+        tot = psum(tot)
+    at = tot.to(torch.float32) if com != "xyz" else None
+    if com:
+        inv = torch.reciprocal(torch.clamp(count, min=1).to(torch.float64)) \
+            if isinstance(count, torch.Tensor) else 1.0 / max(count, 1)
+        drift = (tot * inv).to(torch.float32)
+    fix = {f: drift[k] if f in com else at[k] for k, f in enumerate("xyz")}
+    return [d.replace(**{f: torch.where(live, getattr(d, f) - v, 0.0)
+                         for f, v in fix.items()})
+            for d, live, _ in parts]
+
+
+def _sum64(parts, f, com, fix_point):
+    """The f64 sum over ``parts`` of the field ``f``: of the live rows
+    (``com``), else of the row of stable id ``fix_point``."""
+    total = None
+    for d, live, ids in parts:
+        a = getattr(d, f)
+        if com:
+            s = torch.where(live, a, 0.0).sum(dtype=torch.float64)
+        elif isinstance(ids, torch.Tensor):
+            s = torch.where(ids == fix_point, a, 0.0).sum(
+                dtype=torch.float64)
+        elif 0 <= fix_point - ids < a.shape[0]:
+            s = a[fix_point - ids].to(torch.float64)
+        else:
+            s = a.new_zeros((), dtype=torch.float64)
+        total = s if total is None else total + s
+    return total
+
+
+def mean_v(d1, d2):
+    """The Heun step's old_v: the mean of its two derivatives' x, y, z."""
+    return Float3(x=(d1.x + d2.x) * 0.5, y=(d1.y + d2.y) * 0.5,
+                  z=(d1.z + d2.z) * 0.5)
+
+
+def fold_pair(aux2, aux1):
+    """A pass pair's aux: the corrector's ``aux2``, each failure flag
+    max'ed with the predictor's."""
+    return {k: torch.maximum(v, aux1[k]) if k.startswith(ERR_PREFIX)
+            else v for k, v in aux2.items()}
+
+
+def fold_steps(acc, aux):
+    """Aux over steps or chunks (``acc`` None or empty before the first):
+    each failure flag and staleness measure the maximum of all, every
+    other channel the latest."""
+    if not acc:
+        return dict(aux)
+    return {k: torch.maximum(acc[k], v)
+            if k.startswith(ERR_PREFIX) or k.startswith(STALE_PREFIX) else v
+            for k, v in aux.items()}

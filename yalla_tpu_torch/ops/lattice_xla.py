@@ -31,14 +31,14 @@ import numpy as np
 import torch
 
 from ..dtypes import Float3
-from .common import (ERR_PREFIX, apply_derived_aux, apply_post_pair,
-                     cube_coord, cube_ids, evaluate_pairs, grid_dims,
-                     mask_tree, out_of_grid_mask)
+from .common import (ERR_PREFIX, augment, cube_coord, cube_ids, derivative,
+                     evaluate_pairs, fold_pair, fold_steps, grid_dims,
+                     mean_v, momentum_fix, nonfinite, out_of_grid_mask)
 
 __all__ = ["LatticeLayout", "CubeSort", "sort_by_cube", "lattice_build",
            "lattice_rebin", "lattice_unbuild", "slot_to_stable",
            "stencil_slots", "lattice_pairwise_resident", "pairwise_on_padded",
-           "lattice_heun_steps",
+           "lattice_heun_steps", "add_at_slots",
            "lattice_overflow_count", "cube_extrema", "state_deficit",
            "lattice_grid_for", "pick_lattice_dims"]
 
@@ -632,33 +632,26 @@ def _check_cadence(n_steps, rebuild_every, pallas, gen, extras_cap,
                          "rebuild_every == 1")
 
 
-def _mean_v(d1, d2):
-    """The step's old_v: the mean of the two passes' x, y, z."""
-    return Float3(x=(d1.x + d2.x) * 0.5, y=(d1.y + d2.y) * 0.5,
-                  z=(d1.z + d2.z) * 0.5)
-
-
 def _max_disp(new, ref, live):
     """The largest per-axis displacement of the live slots."""
     return torch.stack([torch.where(live, torch.abs(
         getattr(new, f) - getattr(ref, f)), 0.0).max() for f in "xyz"]).max()
 
 
-def _fold_errs(aux2, aux1):
-    """A pass pair's aux: the corrector's, failure flags max'ed with the
-    predictor's."""
-    return {k: torch.maximum(v, aux1[k]) if k.startswith(ERR_PREFIX)
-            else v for k, v in aux2.items()}
-
-
-def _fold_steps(acc, aux):
-    """Aux over steps or chunks: flags elementwise max, the rest the
-    latest; the staleness measures their max over every chunk."""
-    if acc is None:
-        return dict(aux)
-    return {k: torch.maximum(acc[k], v)
-            if k.startswith(ERR_PREFIX) or k.startswith("stale_") else v
-            for k, v in aux.items()}
+def add_at_slots(F, dX, slot_of, lo, hi, fields=None):
+    """``F``, sums of the slots ``lo`` to ``hi`` in slot order, with a
+    generic force's ``dX`` (stable order) added at each cell's slot
+    (``slot_of``) in that range; a cell with no slot there adds nothing.
+    ``fields`` names the fields ``dX`` writes (None: all of F's)."""
+    n_local = hi - lo
+    mine = (slot_of >= lo) & (slot_of < hi)
+    idx = torch.where(mine, slot_of - lo, n_local)
+    upd = {}
+    for f in fields if fields is not None else F._fields:
+        a = getattr(F, f)
+        upd[f] = torch.cat([a, a.new_zeros(1)]).index_add(
+            0, idx, torch.where(mine, getattr(dX, f), 0.0))[:n_local]
+    return F.replace(**upd)
 
 
 def _with_flags(aux, dropped, oob, bad, unre=None):
@@ -713,7 +706,6 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
 
     The loop is Python over fixed shapes: no value is read back to the
     host inside it."""
-    from ..solvers import add_rhs, augment, nonfinite, truncate_aug
     _check_cadence(n_steps, rebuild_every, pallas, gen, extras_cap,
                    rebin_m_cap, rebin_per_pass, x_split)
     from .lattice_pallas import lattice_pairwise_pallas
@@ -748,24 +740,10 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
         return lattice_rebin(lay, cube_size, gs, C, rebin_m_cap, extras_cap,
                              carry, carry_E, x_split=x_split)
 
-    def add_generic(lay, T, F):
-        """The generic force on the state gathered to stable order, added
-        at each cell's slot (cells with no slot add nothing)."""
-        n_slots = lay.pid.shape[0]
-        ok = lay.slot_of < n_slots
-        dXg = gen.fn(slot_to_stable(lay, T), n, gen_args)
-        upd = {}
-        for f in gen.fields if gen.fields is not None else F._fields:
-            a = getattr(F, f)
-            upd[f] = torch.cat([a, a.new_zeros(1)]).index_add(
-                0, lay.slot_of, torch.where(ok, getattr(dXg, f), 0.0))[
-                    :n_slots]
-        return F.replace(**upd)
-
     def deriv(lay, T, E=None):
         """Derivative in slot space, and in extras order for the extras:
         ``(dX, aux, dXe, aux_e)``, the last two None without extras."""
-        orig_type = type(T)
+        pt = type(T)
         lay = lay._replace(T=augment(T, n, precompute))
         if E is not None:
             lay = lay._replace(E=augment(E, n, precompute))
@@ -773,49 +751,24 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
             pw_int, pw_friction, lay, n, cube_size, grid_size=gs,
             capacity=C, z_block=z_block, extras_block_cap=extras_block_cap,
             x_split=x_split)
-
-        def finish(F, sum_f, sum_v, aux, X_aug, live, with_gen):
-            aux = apply_derived_aux(pw_int, aux, sum_f)
-            F, aux = apply_post_pair(pw_int, F, aux, X_aug)
-            F = truncate_aug(F, orig_type)
-            if with_gen:
-                F = add_generic(lay, T, F)
-            return mask_tree(add_rhs(F, sum_f, sum_v), live), aux
-
+        add_gen = None
+        if gen is not None:
+            def add_gen(F):
+                # the force on the state gathered to stable order
+                dXg = gen.fn(slot_to_stable(lay, T), n, gen_args)
+                return add_at_slots(F, dXg, lay.slot_of, 0, lay.pid.shape[0],
+                                    gen.fields)
         n_pad = lay.slot_of.shape[0]
         occ = lay.pid < n_pad
-        dX, aux = finish(*outs[:4], lay.T, occ, gen is not None)
+        dX, aux = derivative(pw_int, outs[:4], lay.T, pt, occ, add_gen)
         parts = [(dX, occ, lay.pid)]
         aux_e = None
         if E is not None:
             elive = lay.epid < n_pad
-            dXe, aux_e = finish(*outs[4], lay.E, elive, False)
+            dXe, aux_e = derivative(pw_int, outs[4], lay.E, pt, elive)
             parts.append((dXe, elive, lay.epid))
         n_occ = sum(live.sum() for _, live, _ in parts)
-
-        def com(f):
-            # summed in f64, so that the drift does not depend on the
-            # order of the sum (a split lattice sums it per slab)
-            s = sum(torch.where(live, getattr(d, f), 0.0)
-                    .sum(dtype=torch.float64) for d, live, _ in parts)
-            return (s / torch.clamp(n_occ, min=1)).to(torch.float32)
-
-        def at_point(f):
-            # value at the pinned stable id's slot (or extras entry)
-            return sum(torch.where(ids == fix_point, getattr(d, f), 0.0).sum()
-                       for d, _, ids in parts)
-
-        if fix_mode == "com":
-            fix = [com(f) for f in "xyz"]
-        elif fix_mode == "point":
-            fix = [at_point(f) for f in "xyz"]
-        elif fix_mode == "com_z":
-            fix = [at_point("x"), at_point("y"), com("z")]
-        else:
-            raise ValueError(fix_mode)
-        fixed = [d.replace(**{f: torch.where(live, getattr(d, f) - v, 0.0)
-                              for f, v in zip("xyz", fix)})
-                 for d, live, _ in parts]
+        fixed = momentum_fix(parts, n_occ, fix_mode, fix_point)
         return fixed[0], aux, fixed[-1] if E is not None else None, aux_e
 
     def to_stable_aux(lay, aux, aux_e):
@@ -855,14 +808,14 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
             T1 = T + d1 * dt
             E1 = E + d1e * dt if has_e else None
             d2, aux, d2e, aux_e = deriv(lay_t, T1, E1)
-            acc = _fold_steps(acc, _fold_errs(aux, aux1))
+            acc = fold_steps(acc, fold_pair(aux, aux1))
             T_new = T + (d1 + d2) * (0.5 * dt)
             disp = torch.maximum(disp, torch.maximum(
                 _max_disp(T_new, lay.T, occ), _max_disp(T1, lay.T, occ)))
-            T, Tov = T_new, _mean_v(d1, d2)
+            T, Tov = T_new, mean_v(d1, d2)
             if has_e:
-                acc_e = _fold_steps(acc_e, _fold_errs(aux_e, aux1e))
-                E, Eov = E + (d1e + d2e) * (0.5 * dt), _mean_v(d1e, d2e)
+                acc_e = fold_steps(acc_e, fold_pair(aux_e, aux1e))
+                E, Eov = E + (d1e + d2e) * (0.5 * dt), mean_v(d1e, d2e)
             if track:
                 dfc = torch.maximum(dfc, torch.maximum(
                     state_deficit(lay, T1, E1, cube_size, gs),
@@ -921,10 +874,10 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
             note(lay, un)
             d2, aux, d2e, aux_e = deriv(lay, lay.T, lay.E if has_e else None)
             lay = lay._replace(T=lay.T + (d2 - d1) * (0.5 * dt),
-                               Tov=_mean_v(d1, d2))
+                               Tov=mean_v(d1, d2))
             if has_e:
                 lay = lay._replace(E=lay.E + (d2e - d1e) * (0.5 * dt),
-                                   Eov=_mean_v(d1e, d2e))
+                                   Eov=mean_v(d1e, d2e))
                 auxe_c = fold_aux(auxe_c, aux_e, aux1e)
             aux_c = fold_aux(aux_c, aux, aux1)
             bad = bad | nonfinite_lay(lay)
@@ -949,7 +902,7 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
             oob = torch.maximum(oob, lay.n_oob)
             lay, aux_last, bad_c = run_chunk(lay)
             bad = bad | bad_c
-            auxs = _fold_steps(auxs, aux_last)
+            auxs = fold_steps(auxs, aux_last)
         X, old_v = lattice_unbuild(lay, X, old_v)
         return X, old_v, _with_flags(auxs, dropped, oob, bad, unre)
 
@@ -963,7 +916,7 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
             lay, aux_last, bad_c = run_chunk(lay)
             X, old_v = lattice_unbuild(lay, X, old_v)
             bad = bad | bad_c
-            auxs = _fold_steps(auxs, aux_last)
+            auxs = fold_steps(auxs, aux_last)
         return X, old_v, _with_flags(auxs, dropped, oob, bad)
 
     def dstable(Xc, ovc):
@@ -978,9 +931,9 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
     for _ in range(n_steps):
         d1, aux1, dr1, ob1 = dstable(X, old_v)
         d2, aux, dr2, ob2 = dstable(X + d1 * dt, old_v)
-        auxs = _fold_steps(auxs, _fold_errs(aux, aux1))
+        auxs = fold_steps(auxs, fold_pair(aux, aux1))
         X = X + (d1 + d2) * (0.5 * dt)
-        old_v = _mean_v(d1, d2)
+        old_v = mean_v(d1, d2)
         dropped = torch.maximum(dropped, torch.maximum(dr1, dr2))
         oob = torch.maximum(oob, torch.maximum(ob1, ob2))
         bad = bad | nonfinite(X)

@@ -29,10 +29,10 @@ from dataclasses import dataclass
 import torch
 
 from ..dtypes import Float3
-from ..ops.common import (ERR_PREFIX, apply_derived_aux, apply_post_pair,
-                          grid_dims, mask_tree)
+from ..ops.common import (augment, derivative, fold_pair, fold_steps,
+                          grid_dims, mean_v, momentum_fix, nonfinite)
 from ..ops.lattice_pallas import lattice_pairwise_pallas
-from ..ops.lattice_xla import (LatticeLayout, lattice_build,
+from ..ops.lattice_xla import (LatticeLayout, add_at_slots, lattice_build,
                                lattice_unbuild, slot_to_stable)
 from ._comm import plane_exchange, pmax, psum
 from .spmd import gather_pt, make_cells_mesh
@@ -199,7 +199,6 @@ def lattice_sharded_heun_steps(mesh, n_steps, rebuild_every,
     binning), where the single-device integrator rebuilds per pass; use
     :class:`ShardedLatticeEngine` with ``heun_step`` for per-pass
     binning."""
-    from ..solvers import add_rhs, augment, truncate_aug
     if rebuild_every < 1 or n_steps % rebuild_every:
         raise ValueError(f"lattice_sharded_heun_steps: n_steps {n_steps} "
                          f"is not a multiple of rebuild_every "
@@ -207,7 +206,6 @@ def lattice_sharded_heun_steps(mesh, n_steps, rebuild_every,
     C = capacity
     dims = _slab_dims(mesh, grid_size, z_block)
     n_local = dims[0] * dims[1] * dims[2] * C
-    n_slots = n_local * mesh.size
     offset = mesh.rank * n_local
     n_pad = X.x.shape[0]
     dev = X.x.device
@@ -218,70 +216,34 @@ def lattice_sharded_heun_steps(mesh, n_steps, rebuild_every,
         occ = pid < n_pad
         n_occ = psum(mesh, occ.sum())
 
-        def gen_hook(T, F):
-            ok = lay.slot_of < n_slots
-            pick = torch.where(ok, lay.slot_of, 0)
-            T_full = gather_pt(mesh, T)
-            X_st = type(T)(*(torch.where(ok, a[pick], 0.0) for a in T_full))
-            dXg = gen.fn(X_st, n, gen_args)
-            mine = ok & (lay.slot_of >= offset) & \
-                (lay.slot_of < offset + n_local)
-            idx = torch.where(mine, lay.slot_of - offset, n_local)
-            upd = {}
-            for f in gen.fields if gen.fields is not None else F._fields:
-                a = getattr(F, f)
-                upd[f] = torch.cat([a, a.new_zeros(1)]).index_add(
-                    0, idx, torch.where(mine, getattr(dXg, f), 0.0))[
-                        :n_local]
-            return F.replace(**upd)
-
         def deriv(T, Tov):
             Taug = augment(T, n, precompute)
-            F, sum_f, sum_v, aux = _local_pairwise(
+            out = _local_pairwise(
                 mesh, pw_int, pw_friction, Taug, Tov, pid, n, cube_size,
                 dims=dims, C=C, z_block=z_block, n_pad=n_pad)
-            aux = apply_derived_aux(pw_int, aux, sum_f)
-            F, aux = apply_post_pair(pw_int, F, aux, Taug)
-            F = truncate_aug(F, type(T))
+            add_gen = None
             if gen is not None:
-                F = gen_hook(T, F)
-            dX = mask_tree(add_rhs(F, sum_f, sum_v), occ)
-            return _fixed(dX, aux), aux
-
-        def _fixed(dX, aux):
-            com = {"com": "xyz", "point": "", "com_z": "z"}
-            if fix_mode not in com:
-                raise ValueError(fix_mode)
-            parts = []
-            for f in "xyz":
-                m = occ if f in com[fix_mode] else pid == fix_point
-                parts.append(torch.where(m, getattr(dX, f), 0.0)
-                             .sum(dtype=torch.float64))
-            # f64, as lattice_heun_steps sums it: the drift does not
-            # depend on the split
-            tot = psum(mesh, torch.stack(parts))
-            denom = torch.clamp(n_occ, min=1)
-            fix = [(tot[k] / denom if f in com[fix_mode] else tot[k])
-                   .to(torch.float32) for k, f in enumerate("xyz")]
-            return dX.replace(**{f: torch.where(occ, getattr(dX, f) - v,
-                                                0.0)
-                                 for f, v in zip("xyz", fix)})
+                def add_gen(F):
+                    # the hook on the whole state in stable order, alike
+                    # on every rank; each adds the rows of its slab
+                    dXg = gen.fn(slot_to_stable(lay, gather_pt(mesh, T)), n,
+                                 gen_args)
+                    return add_at_slots(F, dXg, lay.slot_of, offset,
+                                        offset + n_local, gen.fields)
+            dX, aux = derivative(pw_int, out, Taug, type(T), occ, add_gen)
+            dX, = momentum_fix([(dX, occ, pid)], n_occ, fix_mode, fix_point,
+                               lambda t: psum(mesh, t))
+            return dX, aux
 
         acc = None
         for _ in range(rebuild_every):
             d1, aux1 = deriv(T, Tov)
             T1 = T + d1 * dt
             d2, aux = deriv(T1, Tov)
-            aux = {k: torch.maximum(v, aux1[k]) if k.startswith(ERR_PREFIX)
-                   else v for k, v in aux.items()}
-            acc = aux if acc is None else {
-                k: torch.maximum(acc[k], v) if k.startswith(ERR_PREFIX)
-                else v for k, v in aux.items()}
+            acc = fold_steps(acc, fold_pair(aux, aux1))
             T = T + (d1 + d2) * (0.5 * dt)
-            Tov = Float3(x=(d1.x + d2.x) * 0.5, y=(d1.y + d2.y) * 0.5,
-                         z=(d1.z + d2.z) * 0.5)
-        bad = torch.stack([~torch.isfinite(torch.where(occ, a, 0.0)).all()
-                           for a in list(T) + list(Tov)]).any()
+            Tov = mean_v(d1, d2)
+        bad = nonfinite([torch.where(occ, a, 0.0) for a in (*T, *Tov)])
         bad = pmax(mesh, bad.to(torch.int32)) > 0
         return T, Tov, acc, bad
 
@@ -302,11 +264,8 @@ def lattice_sharded_heun_steps(mesh, n_steps, rebuild_every,
                            Tov=Float3(*full[nT:nT + 3]))
         X, old_v = lattice_unbuild(lay, X, old_v)
         aux_st = slot_to_stable(lay, dict(zip(aux, full[nT + 3:])))
-        bad = bad | bad_c | torch.stack(
-            [~torch.isfinite(a).all() for a in X]).any()
-        auxs = aux_st if auxs is None else {
-            k: torch.maximum(auxs[k], v) if k.startswith(ERR_PREFIX) else v
-            for k, v in aux_st.items()}
+        bad = bad | bad_c | nonfinite(X)
+        auxs = fold_steps(auxs, aux_st)
     aux = dict(auxs)
     aux["__err_lattice_dropped"] = dropped
     aux["__err_out_of_grid"] = oob

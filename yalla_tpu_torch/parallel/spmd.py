@@ -21,9 +21,9 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..dtypes import Float3
-from ..ops.common import (ERR_PREFIX, apply_derived_aux, apply_post_pair,
-                          friction_w_neighbour, mask_tree)
+from ..ops.common import (ERR_PREFIX, augment, derivative, fold_pair,
+                          fold_steps, friction_w_neighbour, mean_v,
+                          momentum_fix, nonfinite)
 from ._comm import Mesh, all_gather, pmax, psum, single
 
 __all__ = ["make_cells_mesh", "make_sharded_step", "shard_state",
@@ -90,7 +90,6 @@ def make_sharded_step(mesh, engine, pw_int, *,
     tensors, each the maximum over steps, passes and ranks: check them as
     ``Solution._check_errors`` does.  ``gen`` is a ``GenericForce`` run
     on the gathered state with ``gen_args``; ``n`` is a Python int."""
-    from ..solvers import add_rhs, augment, truncate_aug
 
     def step(X, old_v, n, dt, cube_size, fix_point, gen_args=None):
         size = X.x.shape[0]
@@ -98,25 +97,24 @@ def make_sharded_step(mesh, engine, pw_int, *,
         dev = X.x.device
         active = offset + torch.arange(size, device=dev) < n
 
+        def rows(pt):
+            return type(pt)(*(a[offset:offset + size] for a in pt))
+
         def deriv(X_full, ov_full):
             Xa = augment(X_full, n, precompute)
-            F, sum_f, sum_v, aux = engine.pairwise(
-                pw_int, pw_friction, Xa, ov_full, n, cube_size,
-                i_offset=offset, i_size=size)
-            aux = apply_derived_aux(pw_int, aux, sum_f)
+            out = engine.pairwise(pw_int, pw_friction, Xa, ov_full, n,
+                                  cube_size, i_offset=offset, i_size=size)
+            add_gen = None if gen is None else \
+                (lambda F: F + rows(gen.fn(X_full, n, gen_args)))
             # the per-cell transform on this rank's rows of the gathered
             # (augmented) state
-            F, aux = apply_post_pair(pw_int, F, aux, type(Xa)(
-                *(a[offset:offset + size] for a in Xa)))
+            dX, aux = derivative(pw_int, out, rows(Xa), type(X_full),
+                                 active, add_gen)
             errs = {k: v.max().to(torch.float32) for k, v in aux.items()
                     if k.startswith(ERR_PREFIX)}
-            F = truncate_aug(F, type(X_full))
-            if gen is not None:
-                dXg = gen.fn(X_full, n, gen_args)
-                F = F + type(F)(*(a[offset:offset + size] for a in dXg))
-            dX = mask_tree(add_rhs(F, sum_f, sum_v), active)
-            return _fixed(mesh, dX, active, n, fix_mode, fix_point,
-                          offset), errs
+            dX, = momentum_fix([(dX, active, offset)], n, fix_mode,
+                               fix_point, lambda t: psum(mesh, t))
+            return dX, errs
 
         errs = {}
         for _ in range(int(n_steps)):
@@ -125,47 +123,15 @@ def make_sharded_step(mesh, engine, pw_int, *,
             X1 = X + d1 * dt
             d2, e2 = deriv(gather_pt(mesh, X1), ov_full)
             X = X + (d1 + d2) * (0.5 * dt)
-            old_v = Float3(x=(d1.x + d2.x) * 0.5, y=(d1.y + d2.y) * 0.5,
-                           z=(d1.z + d2.z) * 0.5)
-            local = {k: torch.maximum(e1[k], e2[k]) for k in e1}
-            nonfin = torch.stack([~torch.isfinite(a).all() for a in X]) \
-                .any().to(torch.float32)
+            old_v = mean_v(d1, d2)
+            local = fold_pair(e2, e1)
+            nonfin = nonfinite(X).to(torch.float32)
             local["__err_non_finite"] = torch.maximum(
                 local.get("__err_non_finite", nonfin), nonfin)
             keys = list(local)
             # one maximum over the ranks a step for every flag
             red = pmax(mesh, torch.stack([local[k] for k in keys]))
-            errs = {k: torch.maximum(errs[k], v) if k in errs else v
-                    for k, v in zip(keys, red)}
+            errs = fold_steps(errs, dict(zip(keys, red)))
         return X, old_v, errs
 
     return step
-
-
-def _fixed(mesh, dX, active, n, fix_mode, fix_point, offset):
-    """``dX`` with the momentum fix of ``fix_mode`` subtracted from x, y,
-    z of the active rows: each component the COM drift (the sum over the
-    ranks over ``n``) or the pinned point's value (from the rank that
-    holds it), all three in one sum over the ranks."""
-    size = dX.x.shape[0]
-    local = fix_point - offset
-    mine = 0 <= local < size
-    com = {"com": "xyz", "point": "", "com_z": "z"}
-    if fix_mode not in com:
-        raise ValueError(fix_mode)
-    parts = []
-    for f in "xyz":
-        a = getattr(dX, f)
-        if f in com[fix_mode]:
-            # f64, as heun_step sums it: the drift does not depend on the
-            # split
-            parts.append(torch.where(active, a, 0.0)
-                         .sum(dtype=torch.float64))
-        else:
-            parts.append((a[local] if mine else a.new_zeros(()))
-                         .to(torch.float64))
-    tot = psum(mesh, torch.stack(parts))
-    fix = [(tot[k] / n if f in com[fix_mode] else tot[k])
-           .to(torch.float32) for k, f in enumerate("xyz")]
-    return dX.replace(**{f: torch.where(active, getattr(dX, f) - v, 0.0)
-                         for f, v in zip("xyz", fix)})

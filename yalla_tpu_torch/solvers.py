@@ -30,13 +30,19 @@ import numpy as np
 import torch
 
 from . import step_graph
-from .dtypes import Float3, device_of, make_pt
-from .ops.common import (ERR_PREFIX, apply_derived_aux, apply_post_pair,
+from .dtypes import Float3, device_of
+# add_rhs, augment, nonfinite and truncate_aug are importable from here too
+from .ops.common import (ERR_PREFIX, add_rhs, augment,  # noqa: F401
+                         derivative, fold_pair, fold_steps,
                          friction_on_background, friction_w_neighbour,
-                         grid_dims, mask_tree, out_of_grid_mask)
+                         grid_dims, mean_v, momentum_fix, nonfinite,
+                         out_of_grid_mask, truncate_aug)
 from .ops.functors import PAIR_FUNCTORS
 from .ops.grid_xla import (build_grid, gabriel_pairwise, gabriel_windowed,
                            grid_overflow, grid_pairwise)
+from .ops.lattice_xla import (_merge_extras, lattice_build,
+                              lattice_heun_steps, pick_lattice_dims,
+                              slot_to_stable)
 from .ops.pairwise_xla import tile_pairwise
 from .utils.profiling import span, spanned
 
@@ -172,7 +178,6 @@ class GabrielEngine:
             else X.x.device.type == "cuda"
         if use_lattice and _whole(i_offset, i_size):
             from .ops.gabriel_pallas import gabriel_lattice_pallas
-            from .ops.lattice_xla import lattice_build
             with span("gabriel.build"):
                 lay = lattice_build(X, old_v, n, cube_size, self.grid_size,
                                     self.capacity, 0)
@@ -259,8 +264,6 @@ class LatticeEngine:
                              "i_size) window; the z-slab path is "
                              "parallel.lattice_spmd.ShardedLatticeEngine")
         from .ops.lattice_pallas import lattice_pairwise_pallas
-        from .ops.lattice_xla import (_merge_extras, lattice_build,
-                                      slot_to_stable)
         extras = self.extras_cap if self.pallas else 0
         with span("lattice.build"):
             lay = lattice_build(X, old_v, n, cube_size, self.grid_size,
@@ -323,80 +326,19 @@ def _as_generic(gen_forces):
 # Heun predictor-corrector (ref Heun_solver::take_step, solvers.cuh:226-275)
 # --------------------------------------------------------------------------
 
-def _fix_components(dX, n, active, fix_mode, fix_point):
-    """Momentum fix: COM drift (default), pinned point, or xy-point/z-COM
-    (ref solvers.cuh:196-208, 240-253).  Only x, y, z are ever fixed.
-    ``n`` is an int, or a 0-d device tensor (the step's CUDA graph)."""
-    def com(a):
-        # summed in f64, so that the drift does not depend on the order
-        # of the sum (the cells axis sums it per rank)
-        s = torch.where(active, a, 0.0).sum(dtype=torch.float64)
-        if isinstance(n, torch.Tensor):
-            # the product with the reciprocal: what the card computes for
-            # a division by a host number, so both give the same bits
-            return (s * torch.reciprocal(n.to(torch.float64))).to(
-                torch.float32)
-        return (s / n).to(torch.float32)
-    if fix_mode == "com":
-        return com(dX.x), com(dX.y), com(dX.z)
-    if fix_mode == "point":
-        return dX.x[fix_point], dX.y[fix_point], dX.z[fix_point]
-    if fix_mode == "com_z":
-        return dX.x[fix_point], dX.y[fix_point], com(dX.z)
-    raise ValueError(fix_mode)
-
-
-def augment(X, n, precompute):
-    """Append derived per-point fields (e.g. polarity vectors) for the
-    duration of one pairwise pass; they flow through Xi / Xj / r."""
-    if precompute is None:
-        return X
-    aug = precompute(X, n)
-    AugT = make_pt(type(X).__name__ + "Aug",
-                   *(list(type(X)._fields[3:]) + list(aug.keys())))
-    return AugT(*X, *aug.values())
-
-
-def truncate_aug(F, orig_type):
-    if type(F).__name__ == orig_type.__name__:
-        return F
-    return orig_type(*tuple(F)[:len(orig_type._fields)])
-
-
-def nonfinite(pt):
-    """0-d bool tensor: any non-finite value in any field."""
-    return torch.stack([~torch.isfinite(a).all() for a in pt]).any()
-
-
-def add_rhs(F, sum_f, sum_v):
-    """Add the friction-weighted mean neighbour velocity to F's x, y, z
-    (ref add_rhs, solvers.cuh:146-161); no friction, no term."""
-    inv = torch.where(sum_f > 0, 1.0 / torch.where(sum_f > 0, sum_f, 1.0),
-                      0.0)
-    return F.replace(x=F.x + sum_v[0] * inv, y=F.y + sum_v[1] * inv,
-                     z=F.z + sum_v[2] * inv)
-
-
 def _glue(pw_int, fix_mode, fix_point, X, Xa, out, n, gen, gen_args):
     """The derivative from a pair pass's outputs ``out`` on ``Xa`` (X
-    augmented): the derived aux and the post-pair transform, the flags'
-    max, the generic force, the friction term, the mask, the momentum
-    fix and the non-finite flag.  ``n`` and the ints of ``gen_args`` are
-    Python ints, or 0-d device tensors inside a segment's graph."""
-    F, sum_f, sum_v, aux = out
+    augmented): ``ops.common.derivative`` with the generic force, the
+    flags' max, the momentum fix and the non-finite flag.  ``n`` and the
+    ints of ``gen_args`` are Python ints, or 0-d device tensors inside a
+    segment's graph."""
     active = torch.arange(X.x.shape[0], device=X.x.device) < n
-    aux = apply_derived_aux(pw_int, aux, sum_f)
-    F, aux = apply_post_pair(pw_int, F, aux, Xa)
+    add_gen = None if gen is None else \
+        (lambda F: F + gen.fn(X, n, gen_args))
+    dX, aux = derivative(pw_int, out, Xa, type(X), active, add_gen)
     aux = {k: (v.max() if k.startswith(ERR_PREFIX) else v)
            for k, v in aux.items()}
-    F = truncate_aug(F, type(X))
-    if gen is not None:
-        F = F + gen.fn(X, n, gen_args)
-    dX = mask_tree(add_rhs(F, sum_f, sum_v), active)
-    fx, fy, fz = _fix_components(dX, n, active, fix_mode, fix_point)
-    dX = dX.replace(x=torch.where(active, dX.x - fx, 0.0),
-                    y=torch.where(active, dX.y - fy, 0.0),
-                    z=torch.where(active, dX.z - fz, 0.0))
+    dX, = momentum_fix([(dX, active, 0)], n, fix_mode, fix_point)
     aux["__err_non_finite"] = nonfinite(dX).to(torch.float32)
     return dX, aux
 
@@ -517,15 +459,8 @@ def _heun(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
         X0, X1a, dX, aux1, out, nc, args = t
         dX1, aux = _glue(pw_int, fix_mode, fix_point, truncate_aug(X1a, pt),
                          X1a, out, nc, gen, args)
-        # failure flags must survive from BOTH passes
-        for k in aux:
-            if k.startswith(ERR_PREFIX):
-                aux[k] = torch.maximum(aux[k], aux1[k])
-        X_new = X0 + (dX + dX1) * (0.5 * dt)
-        old_v_new = Float3(x=(dX.x + dX1.x) * 0.5,
-                           y=(dX.y + dX1.y) * 0.5,
-                           z=(dX.z + dX1.z) * 0.5)
-        return X_new, old_v_new, aux
+        return X0 + (dX + dX1) * (0.5 * dt), mean_v(dX, dX1), \
+            fold_pair(aux, aux1)
 
     Xa = augment(X, n, precompute)
     out = engine.pairwise(pw_int, pw_friction, Xa, old_v, n, cube_size)
@@ -542,15 +477,13 @@ def heun_steps(n_steps, engine, pw_int, pw_friction, fix_mode, X, old_v, n,
     """``n_steps`` steps of ``heun_step``.  Failure flags are the max over
     the steps (a transient overflow mid-run already mis-integrated the
     state); every other aux channel is the last step's."""
-    errs, aux = {}, {}
+    acc = {}
     for _ in range(int(n_steps)):
         X, old_v, aux = heun_step(engine, pw_int, pw_friction, fix_mode, X,
                                   old_v, n, dt, cube_size, fix_point,
                                   precompute, gen, gen_args)
-        for k, v in aux.items():
-            if k.startswith(ERR_PREFIX):
-                errs[k] = torch.maximum(errs[k], v) if k in errs else v
-    return X, old_v, {**aux, **errs}
+        acc = fold_steps(acc, aux)
+    return X, old_v, acc
 
 
 # --------------------------------------------------------------------------
@@ -695,7 +628,6 @@ class Solution:
         whether its backend is the TPU to pick ``pallas``, the port's
         lattice engine asks nothing: its pair pass takes the kernel for a
         CUDA state and the plain version for a CPU state by itself."""
-        from .ops.lattice_xla import pick_lattice_dims
         if self.n_max <= 2048:
             return TileEngine()
         n = int(self.d_n)
@@ -763,7 +695,6 @@ class Solution:
         n_steps = int(n_steps)
         if isinstance(e, LatticeEngine) and (gen is None
                                              or e.rebuild_every != 1):
-            from .ops.lattice_xla import lattice_heun_steps
             k = e.rebuild_every
             if n_steps % k:
                 # the closest cadence the loop can run (n_steps % k == 0):
@@ -816,7 +747,6 @@ class Solution:
             if bool(out_of_grid_mask(self.d_X, n, self.cube_size, gs).any()):
                 problems["out_of_grid"] = True
         if isinstance(self.engine, LatticeEngine):
-            from .ops.lattice_xla import lattice_build
             lay = lattice_build(self.d_X, self.d_old_v, n, self.cube_size,
                                 self.engine.grid_size, self.engine.capacity,
                                 x_split=self.engine.x_split)
