@@ -7,7 +7,8 @@ the segments, run on their inputs as a graph holds them (each count a 0-d
 int64 tensor, each tensor a copy), give the eager step's bits on every
 engine and generic force of the growth_w_wall example at a tiny size
 (``gww_helpers``); the link and wall forces give the same bits with their
-counts as 0-d tensors; which steps qualify (``solvers.segment_key``) and
+counts as 0-d tensors, and the same bits as the formula that added every
+dead link row into row 0; which steps qualify (``solvers.segment_key``) and
 what their key holds; that a CPU step never reaches a graph.  Marked
 ``gpu`` (skipped without a CUDA device; on a machine with one, ``python
 -m pytest tests/test_torch_segment_graph.py --noconftest -q``): 20 steps
@@ -25,10 +26,11 @@ import torch
 
 from gww_helpers import small_example
 from perfbench import harness
+from yalla_tpu_torch import links as links_mod
 from yalla_tpu_torch import solvers, step_graph
-from yalla_tpu_torch.dtypes import Float3
+from yalla_tpu_torch.dtypes import Float3, pt_zeros_like
 from yalla_tpu_torch.links import Links, link_forces, link_wall_forces, \
-    wall_forces
+    linear_force, wall_forces
 from yalla_tpu_torch.models.growth_w_wall import (WALL, dt, r_max,
                                                   relu_force, wall_friction)
 from yalla_tpu_torch.ops.common import ERR_PREFIX
@@ -125,6 +127,96 @@ def test_link_and_wall_forces_same_bits_with_device_counts(example,
     for f, a, b in zip("xyz", got, want):
         assert torch.equal(a, b), f
     assert any(bool((a != 0).any()) for a in want)
+
+
+def row0_link_dX(force, X, args):
+    """The link forces as they were first written: every row adds at its
+    own ends, a dead row (past ``n_links``, or ``a == b``) its masked
+    zero, so the unset rows of a table (``a == b == 0``) all add into
+    row 0."""
+    a, b, n_links, strength = args
+    live = (torch.arange(a.shape[0], device=a.device) < n_links) & (a != b)
+    Xa = type(X)(*(f[a] for f in X))
+    Xb = type(X)(*(f[b] for f in X))
+    r = Xa - Xb
+    dist = torch.sqrt(r.x * r.x + r.y * r.y + r.z * r.z)
+    dFa, dFb = force(Xa, Xb, r, dist, strength)
+
+    def add(zero, fa, fb):
+        fa = torch.where(live, torch.as_tensor(fa).expand(live.shape), 0.0)
+        fb = torch.where(live, torch.as_tensor(fb).expand(live.shape), 0.0)
+        return zero.index_add(0, a, fa).index_add(0, b, fb)
+    return type(X)(*(add(z, fa, fb)
+                     for z, fa, fb in zip(pt_zeros_like(X), dFa, dFb)))
+
+
+def dead_row_table(cells, n_links=150, m=256, seed=0):
+    """A link table of ``m`` rows over the example's cells: ``n_links``
+    live rows, of which every fifth has ``a == b`` and one ends at row
+    0, and past them stale links and unset rows (``a == b == 0``)."""
+    g = torch.Generator().manual_seed(seed)
+    n = cells.get_d_n()
+    a = torch.randint(1, n, (m,), generator=g)
+    b = torch.randint(1, n, (m,), generator=g)
+    b[:n_links:5] = a[:n_links:5]
+    b[7] = 0
+    a[m - 64:] = 0
+    b[m - 64:] = 0
+    return a, b, n_links
+
+
+@pytest.mark.parametrize("count_kind", ["int", "device"])
+@pytest.mark.parametrize("gen_name", ["link_dX", "link", "link_wall"])
+def test_dead_link_rows_give_the_row0_formula_bits(example, monkeypatch,
+                                                   gen_name, count_kind):
+    _, cells, _ = example
+    a, b, n_links = dead_row_table(cells)
+    links = Links(a.shape[0], device="cpu")
+    links.d_a, links.d_b = a, b
+    links.set_d_n(n_links)
+    assert n_links < links.n_max
+    n = cells.get_d_n()
+    X, args = cells.d_X, links.state
+    if gen_name == "link_dX":
+        def fn(X, n, args):
+            return links_mod._link_dX(linear_force, X, args)
+    else:
+        gen = link_forces(links) if gen_name == "link" \
+            else link_wall_forces(links, WALL)
+        fn, args = gen.fn, gen.args
+    if count_kind == "device":
+        X, n, args = as_in_graph((X, n, args))
+        assert isinstance(n, torch.Tensor)
+    got = fn(X, n, args)
+    with monkeypatch.context() as m:
+        m.setattr(links_mod, "_link_dX", row0_link_dX)
+        want = fn(X, n, args)
+    for f, u, v in zip("xyz", got, want):
+        assert u.shape == v.shape and torch.equal(u, v), f
+    assert bool((want.x[0] != 0) | (want.y[0] != 0) | (want.z[0] != 0))
+
+
+def test_dead_link_rows_add_into_rows_of_their_own(example, monkeypatch):
+    """Every index a dead row adds at lies past X's rows and no other row
+    shares it: no address takes the adds of every dead row."""
+    _, cells, _ = example
+    a, b, n_links = dead_row_table(cells)
+    seen = []
+    real = torch.Tensor.index_add
+
+    def spy(self, dim, index, source, **kw):
+        seen.append(index.clone())
+        return real(self, dim, index, source, **kw)
+    monkeypatch.setattr(torch.Tensor, "index_add", spy)
+    links_mod._link_dX(linear_force, cells.d_X, (a, b, n_links, 0.15))
+    assert len(seen) == 6
+    live = (torch.arange(a.shape[0]) < n_links) & (a != b)
+    n_rows = cells.d_X.x.shape[0]
+    for index, ends in zip(seen, [a, b] * 3):
+        assert torch.equal(index[live], ends[live])
+        dead = index[~live]
+        assert bool((dead >= n_rows).all())
+        assert dead.unique().numel() == dead.numel() > 64
 
 
 class _OnCuda:
@@ -296,8 +388,8 @@ def card_example(monkeypatch, seed=7):
     return ex, cells
 
 
-def run_steps(ex, cells, held, seed, monkeypatch):
-    """``STEPS`` example steps from ``held``: the state after each, each
+def run_steps(ex, cells, held, seed, monkeypatch, steps=STEPS):
+    """``steps`` example steps from ``held``: the state after each, each
     Heun step's outputs with a copy made when it returned, and the calls
     of the names the benchmark's spy watches."""
     cells.d_X, cells.d_old_v, cells.d_n = held
@@ -325,7 +417,7 @@ def run_steps(ex, cells, held, seed, monkeypatch):
                   counted("pairwise", GabrielEngine.pairwise))
         m.setattr(ex, "proliferate", counted("proliferate", ex.proliferate))
         m.setattr(solvers, "heun_step", spy_heun)
-        for _ in range(STEPS):
+        for _ in range(steps):
             ex.step(cells, state)
             after.append((cells.d_X, cells.d_old_v, cells.get_d_n(),
                           state.links.d_a, state.links.d_b,

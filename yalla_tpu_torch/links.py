@@ -204,21 +204,29 @@ def _at(a, i):
 
 def _link_dX(force, X, args):
     """The link forces of ``args = (a, b, n_links, strength)`` on X
-    (``n_links`` an int or a 0-d int64 device tensor)."""
+    (``n_links`` an int or a 0-d int64 device tensor).  A dead row (past
+    ``n_links``, or ``a == b``) adds its zero into a spare row of its own
+    past X's rows, so that no address takes the adds of every dead row
+    (on the card each is an atomic); the live rows add as they would
+    alone."""
     a, b, n_links, strength = args
-    live = (torch.arange(a.shape[0], device=a.device) < n_links) & (a != b)
+    m, n_rows = a.shape[0], X.x.shape[0]
+    rows = torch.arange(m, device=a.device)
+    live = (rows < n_links) & (a != b)
+    spare = rows + n_rows
+    to_a, to_b = torch.where(live, a, spare), torch.where(live, b, spare)
     Xa = type(X)(*(f[a] for f in X))
     Xb = type(X)(*(f[b] for f in X))
     r = Xa - Xb
     dist = torch.sqrt(r.x * r.x + r.y * r.y + r.z * r.z)
     dFa, dFb = force(Xa, Xb, r, dist, strength)
 
-    def add(zero, fa, fb):
+    def add(f, fa, fb):
         fa = torch.where(live, torch.as_tensor(fa).expand(live.shape), 0.0)
         fb = torch.where(live, torch.as_tensor(fb).expand(live.shape), 0.0)
-        return zero.index_add(0, a, fa).index_add(0, b, fb)
-    return type(X)(*(add(z, fa, fb)
-                     for z, fa, fb in zip(pt_zeros_like(X), dFa, dFb)))
+        zero = f.new_zeros(n_rows + m)
+        return zero.index_add(0, to_a, fa).index_add(0, to_b, fb)[:n_rows]
+    return type(X)(*(add(f, fa, fb) for f, fa, fb in zip(X, dFa, dFb)))
 
 
 def _link_force_fn(force):

@@ -18,7 +18,8 @@ with every cadence, thin x-cubes and mover routing
 20k points, and ``Solution.validate``.  On the card a Heun step on the
 kernel lattice engine runs as a CUDA graph (``step_graph.py``); any other
 step runs its two pair passes eagerly and the glue after each as a CUDA
-graph, where its generic force, if any, declares ``capture_key``.
+graph, where its generic force, if any, declares ``capture_key``; the
+Gabriel engine's lattice pass is a CUDA graph of its own.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ from .utils.profiling import span, spanned
 
 __all__ = ["TileEngine", "GridEngine", "GabrielEngine", "LatticeEngine",
            "GenericForce", "Solution", "SimulationError", "heun_step",
-           "heun_steps", "step_graph_key", "segment_key",
+           "heun_steps", "step_graph_key", "segment_key", "gabriel_pass_key",
            "friction_w_neighbour",
            "friction_on_background"]
 
@@ -149,9 +150,10 @@ class GabrielEngine:
     ``(i_offset, i_size)`` of the sharded cells path, run the gather form
     ``gabriel_pairwise``: K5 and the windowed pass sum the whole
     population only.  ``z_block`` is the TPU kernel's block height, read
-    only by :meth:`_lattice_fits`.  Traced, the lattice route's build
-    (the sort glue and the pour K2) is the span ``gabriel.build`` and its
-    pair pass (K5's wrapper) ``gabriel.pair``."""
+    only by :meth:`_lattice_fits`.  On the card the lattice route is a
+    CUDA graph's replay (:meth:`_lattice_pass`).  Traced, the lattice
+    route's build (the sort glue and the pour K2) is the span
+    ``gabriel.build`` and its pair pass (K5's wrapper) ``gabriel.pair``."""
     grid_size: int = 50
     row_cap: int = 32
     gabriel_coefficient: float = 0.8
@@ -177,16 +179,8 @@ class GabrielEngine:
         use_lattice = self.lattice if self.lattice is not None \
             else X.x.device.type == "cuda"
         if use_lattice and _whole(i_offset, i_size):
-            from .ops.gabriel_pallas import gabriel_lattice_pallas
-            with span("gabriel.build"):
-                lay = lattice_build(X, old_v, n, cube_size, self.grid_size,
-                                    self.capacity, 0)
-            with span("gabriel.pair"):
-                return gabriel_lattice_pallas(
-                    pw_int, pw_friction, X, old_v, n, cube_size,
-                    grid_size=self.grid_size, capacity=self.capacity,
-                    max_candidates=self.max_candidates,
-                    gabriel_coefficient=self.gabriel_coefficient, lay=lay)
+            return self._lattice_pass(pw_int, pw_friction, X, old_v, n,
+                                      cube_size)
         if self.windowed and _whole(i_offset, i_size):
             return gabriel_windowed(
                 pw_int, pw_friction, X, old_v, n, cube_size,
@@ -201,6 +195,36 @@ class GabrielEngine:
             gabriel_coefficient=self.gabriel_coefficient,
             i_block=self.i_block, max_candidates=self.max_candidates,
             i_offset=i_offset, i_size=i_size)
+
+    def _lattice_pass(self, pw_int, pw_friction, X, old_v, n, cube_size):
+        """The lattice route: the build (the sort glue and K2), then K5's
+        wrapper; where :func:`gabriel_pass_key` gives a key, a CUDA
+        graph's replay (:func:`.step_graph.gabriel_pass`), bit for bit the
+        eager pass.  The span ``gabriel.build`` times the key and the build
+        (on a replay, the load of the inputs), ``gabriel.pair`` the pair
+        pass (on a replay, the replay and the copies out)."""
+        from .ops.gabriel_pallas import gabriel_lattice_pallas
+
+        def build(Xc, ovc, nc):
+            return lattice_build(Xc, ovc, nc, cube_size, self.grid_size,
+                                 self.capacity, 0)
+
+        def pair(lay, Xc, ovc, nc):
+            return gabriel_lattice_pallas(
+                pw_int, pw_friction, Xc, ovc, nc, cube_size,
+                grid_size=self.grid_size, capacity=self.capacity,
+                max_candidates=self.max_candidates,
+                gabriel_coefficient=self.gabriel_coefficient, lay=lay)
+
+        with span("gabriel.build"):
+            key = gabriel_pass_key(self, pw_int, pw_friction, X, cube_size)
+            graph = None if key is None else step_graph.gabriel_pass(
+                key, lambda *t: pair(build(*t), *t), X, old_v, n)
+            if graph is None:
+                lay = build(X, old_v, n)
+        with span("gabriel.pair"):
+            return pair(lay, X, old_v, n) if graph is None \
+                else graph.replay()
 
 
 @dataclass(frozen=True)
@@ -380,6 +404,30 @@ def segment_key(engine, pw_int, pw_friction, fix_mode, X, dt, cube_size,
                 None if gen is None else gen.capture_key)
 
 
+def gabriel_pass_key(engine, pw_int, pw_friction, X, cube_size,
+                     i_offset=0, i_size=None):
+    """The key of the Gabriel lattice pass's CUDA graph
+    (:func:`.step_graph.gabriel_pass`), or None where the pass runs
+    eagerly: off CUDA, on a window ``(i_offset, i_size)``, where
+    ``cube_size`` is not a Python number, inside another capture, or where
+    the key does not hash.  The key is what the capture bakes in: the
+    engine (by value), the force and the friction (by identity), the
+    parameters of the force's CUDA functor (by value, K5 reads them at
+    launch), the cube size and the point type; the inputs' shapes add to
+    it (``step_graph.cache_key``), their count does not."""
+    if not _whole(i_offset, i_size) or not all(a.is_cuda for a in X) \
+            or not isinstance(cube_size, (int, float)) or _capturing():
+        return None
+    return _hashable((engine, pw_int, pw_friction, _functor_values(pw_int),
+                      cube_size, type(X)))
+
+
+def _capturing():
+    """Whether the current CUDA stream is capturing a graph."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
 def _key(state, engine, pw_int, pw_friction, precompute, fix_mode,
          fix_point, dt, cube_size, *rest):
     """The graph key of a step on ``state`` with ``rest`` appended, or
@@ -388,8 +436,13 @@ def _key(state, engine, pw_int, pw_friction, precompute, fix_mode,
     if not all(a.is_cuda for a in state) or not all(
             isinstance(v, (int, float)) for v in (dt, cube_size, fix_point)):
         return None
-    key = (engine, pw_int, pw_friction, precompute, _functor_values(pw_int),
-           fix_mode, fix_point, type(dt), dt, cube_size, *rest)
+    return _hashable((engine, pw_int, pw_friction, precompute,
+                      _functor_values(pw_int), fix_mode, fix_point, type(dt),
+                      dt, cube_size, *rest))
+
+
+def _hashable(key):
+    """``key``, or None where it does not hash."""
     try:
         hash(key)
     except TypeError:

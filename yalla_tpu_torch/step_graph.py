@@ -1,4 +1,5 @@
-"""The Heun step, or the glue between its pair passes, as CUDA graphs.
+"""The Heun step, the glue between its pair passes, or the Gabriel
+lattice pass, as CUDA graphs.
 
 On the card, a Heun step on the kernel lattice engine is about 1,300
 device operations, each issued from Python: the host's issue, not the
@@ -12,7 +13,9 @@ A step that does not qualify whole (another engine, a generic force)
 still issues hundreds of glue operations between its two pair passes,
 which stay eager Python calls: :func:`segment` captures each stretch of
 glue (``solvers.segment_key``; ``solvers._heun`` cuts the step), two
-segments a step.
+segments a step.  The Gabriel engine's lattice pass, its build and K5,
+is about 120 operations more, twice a step: :func:`gabriel_pass` captures
+it (``solvers.gabriel_pass_key``), the pass still a Python call.
 
 The first call with a key runs eagerly (the warm-up: K1's opt-in to its
 shared memory, the plans' caches, the allocator); the second captures it
@@ -21,22 +24,27 @@ buffers (each Python int, a count, into a 0-d int64 device tensor),
 replays, and returns the graph's outputs: copies of them where they leave
 the step (the frame, the growth, the writer and the callers' own
 references hold them past the next replay), the graph's own tensors
-where the next segment copies them in before any later replay.  The key
+where the next segment copies them in before any later replay (a
+Gabriel pass's are always copies: both passes of a step share one graph,
+and a caller may hold the first pass's outputs past the second).  The key
 a graph is kept under adds the inputs' structure to the caller's: the
 containers, each tensor's shape, dtype and device, where the counts sit,
 and every other value (a float, a string) as it is.  At most
-:data:`MAX_GRAPHS` whole steps and :data:`MAX_SEGMENTS` segments are
-kept, the least recently used evicted first with its memory pool; a key
-seen once costs a dict lookup.  The capture is thread-local
-(``capture_error_mode="thread_local"``): the asynchronous VTK writer's
-worker issues its own copies while a frame runs.
+:data:`MAX_GRAPHS` whole steps, :data:`MAX_SEGMENTS` segments and
+:data:`MAX_PASSES` Gabriel passes are kept, the least recently used
+evicted first with its memory pool; a key seen once costs a dict lookup.
+The capture is thread-local (``capture_error_mode="thread_local"``): the
+asynchronous VTK writer's worker issues its own copies while a frame
+runs.
 
 Counters (``utils.profiling``): ``integrator.graph_capture`` and
 ``integrator.graph_replay`` for whole steps, ``integrator.segment_capture``
-and ``integrator.segment_replay`` for segments (a capture's own replay is
-not counted as one); the launches counted while a graph is captured
-(``kernels.lattice_pair``, ``kernels.pour``) are counted again at every
-replay, so those counters count launches that ran.
+and ``integrator.segment_replay`` for segments, ``gabriel.graph_capture``
+and ``gabriel.graph_replay`` for Gabriel passes (a capture's own replay
+is not counted as one); the launches counted while a graph is captured
+(``kernels.lattice_pair``, ``kernels.pour``, ``kernels.gabriel_pair``)
+are counted again at every replay, so those counters count launches that
+ran.
 """
 from __future__ import annotations
 
@@ -46,8 +54,9 @@ import torch
 
 from .utils.profiling import count, tally
 
-__all__ = ["MAX_GRAPHS", "MAX_SEGMENTS", "run", "segment", "cache_key",
-           "keys", "segment_keys", "clear"]
+__all__ = ["MAX_GRAPHS", "MAX_SEGMENTS", "MAX_PASSES", "run", "segment",
+           "gabriel_pass", "cache_key", "keys", "segment_keys", "pass_keys",
+           "clear"]
 
 # whole steps kept: the frame's engine's, and a resized engine's after a
 # redo
@@ -55,6 +64,8 @@ MAX_GRAPHS = 2
 # segments kept: two a step, for a relaxation's engine and force and for
 # the growth's
 MAX_SEGMENTS = 4
+# Gabriel lattice passes kept: a relaxation's engine's and the growth's
+MAX_PASSES = 2
 # keys called once, kept so that their second call captures
 _MAX_SEEN = 8
 # the kinds of leaf in a structure
@@ -161,33 +172,42 @@ class _Cache:
         self.graphs = OrderedDict()     # key -> _Graph
         self.seen = OrderedDict()       # key -> None
 
-    def run(self, key, body, tree, copy):
+    def prepare(self, key, body, tree, copy):
+        """The graph of ``key`` on ``tree``, its inputs loaded and ready
+        to replay (captured from ``body`` at the key's second call), or
+        None where ``body`` runs eagerly (the key's first call, or a
+        value that does not hash)."""
         full, leaves = _keyed(key, tree)
         try:
             g = self.graphs.get(full)
         except TypeError:               # a value that does not hash
-            return body(tree)
+            return None
         if g is not None:
             self.graphs.move_to_end(full)
             g.load(leaves)
             count(self.name + "_replay")
-            return g.replay()
+            return g
         if full not in self.seen:
             self.seen[full] = None
             if len(self.seen) > _MAX_SEEN:
                 self.seen.popitem(last=False)
-            return body(tree)
+            return None
         del self.seen[full]
         g = _Graph(body, full[-1], leaves, copy)
         count(self.name + "_capture")
         self.graphs[full] = g
         if len(self.graphs) > self.bound:
             self.graphs.popitem(last=False)
-        return g.replay()
+        return g
+
+    def run(self, key, body, tree, copy):
+        g = self.prepare(key, body, tree, copy)
+        return body(tree) if g is None else g.replay()
 
 
 _steps = _Cache(MAX_GRAPHS, "integrator.graph")
 _segments = _Cache(MAX_SEGMENTS, "integrator.segment")
+_passes = _Cache(MAX_PASSES, "gabriel.graph")
 
 
 def run(key, body, X, old_v, n):
@@ -205,6 +225,14 @@ def segment(key, body, tree, copy):
     return _segments.run(key, body, tree, copy)
 
 
+def gabriel_pass(key, body, X, old_v, n):
+    """The graph of the Gabriel lattice pass ``body(X, old_v, n)`` under
+    ``key``, its inputs loaded: call its ``replay()`` for the pass's
+    outputs (copies).  None at the key's first call, where the caller
+    runs the pass eagerly; captured at its second."""
+    return _passes.prepare(key, lambda t: body(*t), (X, old_v, n), True)
+
+
 def keys():
     """The keys of the whole steps' graphs held, least recently used
     first."""
@@ -217,8 +245,14 @@ def segment_keys():
     return [k[:-1] for k in _segments.graphs]
 
 
+def pass_keys():
+    """The keys of the Gabriel passes' graphs held, least recently used
+    first."""
+    return [k[:-1] for k in _passes.graphs]
+
+
 def clear():
     """Drop every graph (and its memory pool) and every key seen."""
-    for c in (_steps, _segments):
+    for c in (_steps, _segments, _passes):
         c.graphs.clear()
         c.seen.clear()
