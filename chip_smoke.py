@@ -156,8 +156,8 @@ own line:
     functor (16 channels: the example's fields and the seven polarity
     precompute channels, with old_v) against ``lattice_pairwise_plain``
     on the example's initial state (the 11,557 cells of
-    ``examples/sphere_ic.vtk`` in 151,552 rows, the lattice
-    ``solver="auto"`` picks: grid 32, C 8): ``sum_f``, ``epi_nbs`` and
+    ``examples/sphere_ic.vtk`` in 151,552 rows, on the example's lattice:
+    grid 40, C 16): ``sum_f``, ``epi_nbs`` and
     ``mes_nbs`` exact, the rest within ``RTOL``, ``ATOL`` and ``COND`` as
     in phase 17; its plan beside branching's on that lattice (branching's
     plan of the 500k lattice unchanged), the work per cell, ms per pass of
@@ -1621,8 +1621,8 @@ def example_kernel_checks(dev, states):
 def iwg_kernel_check(dev):
     """Phase 21: K1 with the ``intercalation_w_gradient`` functor against
     ``lattice_pairwise_plain`` on the example's initial state (the
-    11,557-cell embryo of ``sphere_ic.vtk`` in 151,552 rows, the lattice
-    ``solver="auto"`` picks for it, a seeded old_v), the 16 channels the
+    11,557-cell embryo of ``sphere_ic.vtk`` in 151,552 rows, the
+    example's lattice, a seeded old_v), the 16 channels the
     example's augmented state gives the build; then the same cells at C 4
     with an extras sidecar of ``IWG_EXTRAS_CAP`` rows.  Exact, in the
     lattice's slots and in the extras' rows: ``sum_f``, ``epi_nbs``,
@@ -1808,7 +1808,7 @@ def to_device(draws, device):
 def iwg_full_width(dev):
     """Phase 22: the intercalation_w_gradient example at full width on the
     card: ``setup`` (the 11,557 cells of ``sphere_ic.vtk`` in 151,552
-    rows on the lattice ``solver="auto"`` picks), one warm-up step, then
+    rows on the example's lattice), one warm-up step, then
     ``IWG_STEPS`` steps of ``step`` (rewiring, the Heun step with the link
     forces, its flags checked, divisions) with the launch counts set to 0
     just before and read just after: K1 and K2 launched twice a step, no

@@ -7,13 +7,21 @@ checkpoints); two morphogens (w, f) diffuse from epithelial sources and
 steer grid-sampled protrusion rewiring; the epithelium proliferates,
 towards 150,000 cells.
 
-``Solution(solver="auto")`` resolves to the dense lattice engine at this
-size, so on the card each Heun pass builds the lattice with the pour
-kernel (K2) and runs the force in the lattice pair kernel (K1) as its
-``intercalation_w_gradient`` functor, on the point fields and the seven
-channels of ``polarity_precompute``.  The JAX package fuses a step
-(rewiring, Heun step, division) into one compiled program; here a step is
-the same calls made eagerly (:func:`step`), its flags checked each step.
+The state runs on the dense lattice engine, so on the card each Heun
+pass builds the lattice with the pour kernel (K2) and runs the force in
+the lattice pair kernel (K1) as its ``intercalation_w_gradient`` functor,
+on the point fields and the seven channels of ``polarity_precompute``.
+The JAX example takes the lattice ``Solution(solver="auto")`` sizes once
+from the embryo (grid 32, capacity 8); the published run outgrows it,
+so this one is sized for the whole run: ``GRID_SIZE`` = 40 and
+``CAPACITY`` = 16.  The embryo's fullest cube holds 6 cells and the
+growth brings 9 and 10 (at capacity 8 the build drops a cell between
+steps 56 and 188), and the tissue spreads from a largest coordinate of
+10.0 to 16.3-16.9 by step 500 (past the 32-cube grid's 16 between steps
+472 and 486, which the flags refuse): a 40-cube grid reaches 20.  The
+sizing changes no force.  The JAX package fuses a step (rewiring, Heun
+step, division) into one compiled program; here a step is the same calls
+made eagerly (:func:`step`), its flags checked each step.
 
 The protrusion rewiring and the divisions draw from ``torch.Generator``s
 on the state's device; ``torch`` cannot reproduce the JAX package's
@@ -35,6 +43,8 @@ from ..growth import draw as growth_draw
 from ..growth import proliferate
 from ..links import Links, link_forces, random_cube_neighbours
 from ..polarity import bending_force_fast, polarity_precompute
+from ..solvers import LatticeEngine
+from ..utils.profiling import spanned
 from ..vtkio import Vtk_input, Vtk_output
 from . import device_arg, steps_arg
 
@@ -51,6 +61,9 @@ MESENCHYME, EPITHELIUM = 0.0, 1.0
 SEED = 9
 # the grid random_cube_neighbours bins the protrusion proposals on
 PROTRUSION_GRID = 32
+# the lattice, sized for the published run (module docstring)
+GRID_SIZE = 40
+CAPACITY = 16
 # the initial condition, a data file of the repository
 IC_PATH = Path(__file__).resolve().parents[2] / "examples" / "sphere_ic.vtk"
 
@@ -158,9 +171,10 @@ def child_fn(X, props, direction, i):
 
 def setup(device="cuda", path=IC_PATH):
     """The embryo of ``path`` (the repository's ``sphere_ic.vtk`` by
-    default) in a ``Solution(Cell, n_max, solver="auto")``: positions,
-    polarities and types from the file, w = 1 on the upper epithelium and
-    f = 1 on a patch of it."""
+    default) in a ``Solution(Cell, n_max)`` on the run's lattice
+    (``GRID_SIZE``, ``CAPACITY``): positions, polarities and types from
+    the file, w = 1 on the upper epithelium and f = 1 on a patch of
+    it."""
     path = Path(path)
     if not path.is_file():
         raise FileNotFoundError(
@@ -169,7 +183,8 @@ def setup(device="cuda", path=IC_PATH):
             f"examples/sphere_ic.vtk)")
     inp = Vtk_input(str(path))
     n_0 = inp.n_points
-    cells = Solution(Cell, n_max, solver="auto", device=device)
+    cells = Solution(Cell, n_max, device=device, engine=LatticeEngine(
+        grid_size=GRID_SIZE, capacity=CAPACITY, z_block=2))
     cells.h_n = n_0
     inp.read_positions(cells)
     inp.read_polarity(cells)
@@ -185,16 +200,16 @@ def setup(device="cuda", path=IC_PATH):
     return cells
 
 
-def start(cells, n_steps=None):
+def start(cells, n_steps=None, seed=SEED):
     """A run's state: the step index, the protrusions (one a cell, their
-    generator seeded ``SEED``), their rule for the state's rows and the
-    divisions' generator (seeded ``SEED``)."""
+    generator seeded ``seed``), their rule for the state's rows and the
+    divisions' generator (seeded ``seed``)."""
     dev = cells.device
     g = torch.Generator(device=dev)
-    g.manual_seed(SEED)
+    g.manual_seed(seed)
     return SimpleNamespace(
         t=0, n_steps=n_time_steps if n_steps is None else n_steps,
-        links=Links(n_max * prots_per_cell, protrusion_strength, seed=SEED,
+        links=Links(n_max * prots_per_cell, protrusion_strength, seed=seed,
                     device=dev),
         update=make_update_protrusions(cells.n_pad), generator=g)
 
@@ -225,19 +240,30 @@ def step(cells, state, draws=None):
     return aux
 
 
+def cell_types(cells):
+    """The frames' ``cell_type`` property, filled by :func:`write_frame`."""
+    return Property(cells.n_pad, "cell_type", device=cells.device)
+
+
+@spanned("output.frame")
+def write_frame(output, cells, state, cell_type):
+    """One frame's file: the positions, the protrusions, the cell types
+    (read back into ``cell_type``) and the fields w and f."""
+    output.write_positions(cells)
+    output.write_links(state.links)
+    cell_type.h_prop = cells.d_X.ctype.cpu().numpy().astype(np.int32)
+    output.write_property(cell_type)
+    output.write_field(cells, "w")
+    output.write_field(cells, "f")
+
+
 def run(cells, n_steps=None):
     """``n_steps + 1`` steps, a VTK frame before each."""
     state = start(cells, n_steps)
-    ctype_prop = Property(cells.n_pad, "cell_type", device=cells.device)
+    cell_type = cell_types(cells)
     with Vtk_output("intercalation_w_gradient") as output:
         for _ in range(state.n_steps + 1):
-            output.write_positions(cells)
-            output.write_links(state.links)
-            ctype_prop.h_prop = cells.d_X.ctype.cpu().numpy().astype(
-                np.int32)
-            output.write_property(ctype_prop)
-            output.write_field(cells, "w")
-            output.write_field(cells, "f")
+            write_frame(output, cells, state, cell_type)
             step(cells, state)
     return state
 

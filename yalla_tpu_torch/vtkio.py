@@ -228,6 +228,7 @@ class Vtk_output:
         self._submit(job)
 
     # -- extra Pt fields (ref vtk.cuh:147-166) -------------------------------
+    @spanned("output.submit")
     def write_field(self, points, data_name="w", field=None):
         field = field or data_name
         src = self._dev_field(points, field)
@@ -247,6 +248,7 @@ class Vtk_output:
         self._submit(job)
 
     # -- polarity as NORMALS (ref vtk.cuh:168-187) ---------------------------
+    @spanned("output.submit")
     def write_polarity(self, points, data_name="polarity", axis=DEFAULT_AXIS):
         th_src = self._dev_field(points, axis[0])
         ph_src = self._dev_field(points, axis[1])
