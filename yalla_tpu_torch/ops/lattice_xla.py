@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import step_graph
 from ..dtypes import Float3
 from .common import (ERR_PREFIX, augment, cube_coord, cube_ids, derivative,
                      evaluate_pairs, fold_pair, fold_steps, grid_dims,
@@ -671,7 +672,8 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
                        precompute=None, pallas=True, gen=None,
                        gen_args=None, force_r_max=None,
                        extras_cap=0, extras_block_cap=16, rebin_m_cap=0,
-                       rebin_per_pass=False, route_movers=0.0, x_split=1):
+                       rebin_per_pass=False, route_movers=0.0, x_split=1,
+                       segment=step_graph.eager):
     """``n_steps`` Heun steps on the dense lattice, the JAX integrator's
     signature and cadences.  Same integration semantics as
     ``solvers.heun_step`` (COM/point fixes, friction-weighted velocity
@@ -705,7 +707,12 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
       added at ``slot_of`` (only ``gen.fields`` when given).
 
     The loop is Python over fixed shapes: no value is read back to the
-    host inside it."""
+    host inside it.  At a fresh binning before every pass the builds are
+    eager calls of ``lattice_build`` and the glue after each is
+    ``segment(tag, body, inputs, copy) -> body(inputs)`` (tags ``first``
+    and ``second``; ``copy``: its outputs leave the step), which
+    ``step_graph.segment`` replays as a CUDA graph
+    (``solvers.lattice_segment_key``)."""
     _check_cadence(n_steps, rebuild_every, pallas, gen, extras_cap,
                    rebin_m_cap, rebin_per_pass, x_split)
     from .lattice_pallas import lattice_pairwise_pallas
@@ -740,22 +747,24 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
         return lattice_rebin(lay, cube_size, gs, C, rebin_m_cap, extras_cap,
                              carry, carry_E, x_split=x_split)
 
-    def deriv(lay, T, E=None):
+    def deriv(lay, T, E=None, nc=n):
         """Derivative in slot space, and in extras order for the extras:
-        ``(dX, aux, dXe, aux_e)``, the last two None without extras."""
+        ``(dX, aux, dXe, aux_e)``, the last two None without extras.
+        ``nc``: the count, a 0-d device tensor inside a segment's
+        graph."""
         pt = type(T)
-        lay = lay._replace(T=augment(T, n, precompute))
+        lay = lay._replace(T=augment(T, nc, precompute))
         if E is not None:
-            lay = lay._replace(E=augment(E, n, precompute))
+            lay = lay._replace(E=augment(E, nc, precompute))
         outs = lattice_pairwise_pallas(
-            pw_int, pw_friction, lay, n, cube_size, grid_size=gs,
+            pw_int, pw_friction, lay, nc, cube_size, grid_size=gs,
             capacity=C, z_block=z_block, extras_block_cap=extras_block_cap,
             x_split=x_split)
         add_gen = None
         if gen is not None:
             def add_gen(F):
                 # the force on the state gathered to stable order
-                dXg = gen.fn(slot_to_stable(lay, T), n, gen_args)
+                dXg = gen.fn(slot_to_stable(lay, T), nc, gen_args)
                 return add_at_slots(F, dXg, lay.slot_of, 0, lay.pid.shape[0],
                                     gen.fields)
         n_pad = lay.slot_of.shape[0]
@@ -919,22 +928,48 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
             auxs = fold_steps(auxs, aux_last)
         return X, old_v, _with_flags(auxs, dropped, oob, bad)
 
-    def dstable(Xc, ovc):
-        lay = build_lay(Xc, ovc)
-        dXs, aux_s, dXe, aux_e = deriv(lay, lay.T, lay.E if has_e else None)
+    def glue(lay, nc):
+        """A fresh build's pass and its derivative in stable order, the
+        extras' rows merged: ``(dX, aux)``."""
+        dXs, aux_s, dXe, aux_e = deriv(lay, lay.T, lay.E if has_e else None,
+                                       nc)
         dX = slot_to_stable(lay, dXs)
         if has_e:
             dX = type(dX)(*(_merge_extras(lay, a, e)
                             for a, e in zip(dX, dXe)))
-        return dX, to_stable_aux(lay, aux_s, aux_e), lay.n_dropped, lay.n_oob
+        return dX, to_stable_aux(lay, aux_s, aux_e)
 
+    def first(t):
+        lay, Xc, nc = t
+        d1, aux1 = glue(lay, nc)
+        return d1, aux1, Xc + d1 * dt
+
+    def second(t):
+        lay, Xc, d1, aux1, auxs, dropped, oob, bad, \
+            (dr1, ob1, dr2, ob2), nc = t
+        d2, aux = glue(lay, nc)
+        Xn = Xc + (d1 + d2) * (0.5 * dt)
+        return (Xn, mean_v(d1, d2), fold_steps(auxs, fold_pair(aux, aux1)),
+                torch.maximum(dropped, torch.maximum(dr1, dr2)),
+                torch.maximum(oob, torch.maximum(ob1, ob2)),
+                bad | nonfinite(Xn))
+
+    def glue_in(lay):
+        # what the glue reads of a build: all but its counts
+        return lay._replace(n_dropped=None, n_oob=None, n_extras=None)
+
+    # the accumulators keep one structure from the first step on (each a
+    # tensor of its own, the aux from zeros): one key for each segment
+    oob = torch.zeros_like(zero_i)
     for _ in range(n_steps):
-        d1, aux1, dr1, ob1 = dstable(X, old_v)
-        d2, aux, dr2, ob2 = dstable(X + d1 * dt, old_v)
-        auxs = fold_steps(auxs, fold_pair(aux, aux1))
-        X = X + (d1 + d2) * (0.5 * dt)
-        old_v = mean_v(d1, d2)
-        dropped = torch.maximum(dropped, torch.maximum(dr1, dr2))
-        oob = torch.maximum(oob, torch.maximum(ob1, ob2))
-        bad = bad | nonfinite(X)
+        lay = build_lay(X, old_v)
+        counts = (lay.n_dropped, lay.n_oob)
+        d1, aux1, X1 = segment("first", first, (glue_in(lay), X, n), False)
+        lay = build_lay(X1, old_v)
+        counts += (lay.n_dropped, lay.n_oob)
+        if auxs is None:
+            auxs = {k: torch.zeros_like(v) for k, v in aux1.items()}
+        X, old_v, auxs, dropped, oob, bad = segment(
+            "second", second, (glue_in(lay), X, d1, aux1, auxs, dropped,
+                               oob, bad, counts, n), True)
     return X, old_v, _with_flags(auxs, dropped, oob, bad)

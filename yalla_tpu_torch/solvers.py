@@ -19,7 +19,9 @@ with every cadence, thin x-cubes and mover routing
 kernel lattice engine runs as a CUDA graph (``step_graph.py``); any other
 step runs its two pair passes eagerly and the glue after each as a CUDA
 graph, where its generic force, if any, declares ``capture_key``; the
-Gabriel engine's lattice pass is a CUDA graph of its own.
+Gabriel engine's lattice pass is a CUDA graph of its own; ``take_steps``
+at a build before every pass runs its builds eagerly and each pass with
+its glue as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ from .utils.profiling import span, spanned
 
 __all__ = ["TileEngine", "GridEngine", "GabrielEngine", "LatticeEngine",
            "GenericForce", "Solution", "SimulationError", "heun_step",
-           "heun_steps", "step_graph_key", "segment_key", "gabriel_pass_key",
+           "heun_steps", "step_graph_key", "segment_key",
+           "lattice_segment_key", "gabriel_pass_key",
            "friction_w_neighbour",
            "friction_on_background"]
 
@@ -404,6 +407,25 @@ def segment_key(engine, pw_int, pw_friction, fix_mode, X, dt, cube_size,
                 None if gen is None else gen.capture_key)
 
 
+def lattice_segment_key(engine, rebuild_every, pw_int, pw_friction,
+                        fix_mode, X, dt, cube_size, fix_point=0,
+                        precompute=None, gen=None, rebin_m_cap=0):
+    """The key of the glue segments of ``lattice_heun_steps`` on
+    ``engine`` (:func:`.step_graph.segment`), or None where its loop runs
+    eagerly: at any cadence but a fresh binning before every pass
+    (``rebuild_every`` 1, no ``rebin_m_cap``, no generic force), off
+    CUDA, inside another capture, or where ``dt``, ``cube_size`` or
+    ``fix_point`` is not a Python number.  The key holds what
+    :func:`segment_key` holds (the engine by value: its grid, capacity,
+    ``z_block``, extras caps and ``x_split``) and the loop's name; the
+    inputs' shapes add to it (``step_graph.cache_key``)."""
+    if rebuild_every != 1 or rebin_m_cap or gen is not None \
+            or _capturing():
+        return None
+    return _key(X, engine, pw_int, pw_friction, precompute, fix_mode,
+                fix_point, dt, cube_size, type(X), "lattice_heun_steps")
+
+
 def gabriel_pass_key(engine, pw_int, pw_friction, X, cube_size,
                      i_offset=0, i_size=None):
     """The key of the Gabriel lattice pass's CUDA graph
@@ -472,7 +494,7 @@ def heun_step(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
     :func:`segment_key` gives one, the glue after each of its two pair
     passes is (the passes run eagerly): the same kernels on the same
     inputs, bit for bit the eager step."""
-    def body(Xc, ovc, nc, segment=_eager):
+    def body(Xc, ovc, nc, segment=step_graph.eager):
         return _heun(engine, pw_int, pw_friction, fix_mode, Xc, ovc, nc, dt,
                      cube_size, fix_point, precompute, gen, gen_args,
                      segment)
@@ -480,21 +502,24 @@ def heun_step(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
                          dt, cube_size, fix_point, precompute, gen)
     if key is not None:
         return step_graph.run(key, body, X, old_v, n)
-    key = segment_key(engine, pw_int, pw_friction, fix_mode, X, dt,
-                      cube_size, fix_point, precompute, gen)
+    return body(X, old_v, n, _segments(
+        segment_key(engine, pw_int, pw_friction, fix_mode, X, dt, cube_size,
+                    fix_point, precompute, gen)))
+
+
+def _segments(key):
+    """A step's ``segment(tag, body, inputs, copy)``: the CUDA graphs of
+    ``key`` (:func:`.step_graph.segment`), or each body run as it stands
+    where ``key`` is None."""
     if key is None:
-        return body(X, old_v, n)
-    return body(X, old_v, n, lambda tag, fn, tree, copy:
-                step_graph.segment(key + (tag,), fn, tree, copy))
-
-
-def _eager(tag, body, tree, copy):
-    """A segment of :func:`_heun` run as it stands."""
-    return body(tree)
+        return step_graph.eager
+    return lambda tag, fn, tree, copy: step_graph.segment(key + (tag,), fn,
+                                                          tree, copy)
 
 
 def _heun(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
-          cube_size, fix_point, precompute, gen, gen_args, segment=_eager):
+          cube_size, fix_point, precompute, gen, gen_args,
+          segment=step_graph.eager):
     """The step of :func:`heun_step`: the two pair passes called here, the
     glue after each as ``segment(tag, body, inputs, copy) ->
     body(inputs)`` (:func:`.step_graph.segment` replays it; ``copy``: its
@@ -741,7 +766,11 @@ class Solution:
         :func:`heun_steps` on ``engine.pairwise`` (the same step: the
         lattice engine's ``pairwise`` rebuilds per pass too).  Any other
         engine runs :func:`heun_steps`.  ``gen_forces`` is a
-        ``GenericForce`` or a plain ``fn(X, n)``."""
+        ``GenericForce`` or a plain ``fn(X, n)``.  On the card, at a
+        build before every pass with no generic force, the glue after
+        each build (the pass, the derivative, the Heun update and the
+        folds) replays as a CUDA graph (:func:`lattice_segment_key`),
+        two a step, the builds still eager calls."""
         self._ensure_device()
         e = self.engine
         gen = _as_generic(gen_forces)
@@ -759,6 +788,9 @@ class Solution:
                     f"take_steps(n_steps={n_steps}) is not a multiple of "
                     f"rebuild_every={e.rebuild_every}; rebuilding every "
                     f"{k} steps for this call", stacklevel=2)
+            key = lattice_segment_key(
+                e, k, pw_int, pw_friction, self._fix_mode, self.d_X, dt,
+                self.cube_size, self._fix_point, precompute, gen)
             self.d_X, self.d_old_v, self.aux = lattice_heun_steps(
                 n_steps, k, pw_int, pw_friction, self._fix_mode,
                 e.grid_size, e.capacity, e.z_block, self.d_X,
@@ -766,7 +798,7 @@ class Solution:
                 self._fix_point, precompute, e.pallas, gen,
                 gen.args if gen is not None else None, e.force_r_max,
                 e.extras_cap, e.extras_block_cap, 0, False,
-                e.route_movers, e.x_split)
+                e.route_movers, e.x_split, _segments(key))
         else:
             self._heun_steps(n_steps, dt, pw_int, pw_friction, gen,
                              precompute)

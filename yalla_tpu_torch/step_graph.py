@@ -13,9 +13,13 @@ A step that does not qualify whole (another engine, a generic force)
 still issues hundreds of glue operations between its two pair passes,
 which stay eager Python calls: :func:`segment` captures each stretch of
 glue (``solvers.segment_key``; ``solvers._heun`` cuts the step), two
-segments a step.  The Gabriel engine's lattice pass, its build and K5,
-is about 120 operations more, twice a step: :func:`gabriel_pass` captures
-it (``solvers.gabriel_pass_key``), the pass still a Python call.
+segments a step.  The slot-order integrator at a build before every
+pass (``ops.lattice_xla.lattice_heun_steps``) is cut the same way at its
+two eager ``lattice_build`` calls a step, each pass and its glue a
+segment (``solvers.lattice_segment_key``).  The Gabriel engine's lattice
+pass, its build and K5, is about 120 operations more, twice a step:
+:func:`gabriel_pass` captures it (``solvers.gabriel_pass_key``), the
+pass still a Python call.
 
 The first call with a key runs eagerly (the warm-up: K1's opt-in to its
 shared memory, the plans' caches, the allocator); the second captures it
@@ -55,8 +59,8 @@ import torch
 from .utils.profiling import count, tally
 
 __all__ = ["MAX_GRAPHS", "MAX_SEGMENTS", "MAX_PASSES", "run", "segment",
-           "gabriel_pass", "cache_key", "keys", "segment_keys", "pass_keys",
-           "clear"]
+           "eager", "gabriel_pass", "cache_key", "keys", "segment_keys",
+           "pass_keys", "clear"]
 
 # whole steps kept: the frame's engine's, and a resized engine's after a
 # redo
@@ -223,6 +227,12 @@ def segment(key, body, tree, copy):
     replayed from then on; its outputs copied with ``copy``, else the
     graph's own, which the next replay overwrites."""
     return _segments.run(key, body, tree, copy)
+
+
+def eager(tag, body, tree, copy):
+    """``body(tree)``: a segment run as it stands, the callers' default
+    where a step's glue is not captured."""
+    return body(tree)
 
 
 def gabriel_pass(key, body, X, old_v, n):
