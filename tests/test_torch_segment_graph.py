@@ -475,7 +475,7 @@ def test_segment_graphs_keep_four_and_evict_the_oldest(cuda, monkeypatch):
     ex, cells = card_example(monkeypatch)
     step_graph.clear()
     engines = [dataclasses.replace(cells.engine, max_candidates=m)
-               for m in (64, 72, 80)]
+               for m in (64, 72, 80, 88)]
     held = []
     with profiling.tracing():
         for engine in engines:
@@ -489,10 +489,12 @@ def test_segment_graphs_keep_four_and_evict_the_oldest(cuda, monkeypatch):
     assert held == [[(64, "first"), (64, "second")],
                     [(64, "first"), (64, "second"), (72, "first"),
                      (72, "second")],
+                    [(64, "first"), (64, "second"), (72, "first"),
+                     (72, "second"), (80, "first"), (80, "second")],
                     [(72, "first"), (72, "second"), (80, "first"),
-                     (80, "second")]]
-    assert counters["integrator.segment_capture"] == 6
-    assert counters["integrator.segment_replay"] == 6
-    assert step_graph.MAX_SEGMENTS == 4
+                     (80, "second"), (88, "first"), (88, "second")]]
+    assert counters["integrator.segment_capture"] == 8
+    assert counters["integrator.segment_replay"] == 8
+    assert step_graph.MAX_SEGMENTS == 6
     step_graph.clear()
 

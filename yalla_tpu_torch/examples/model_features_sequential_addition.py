@@ -10,6 +10,14 @@ torch operations on either device); the divisions and the rewiring draw
 from ``torch.Generator``s on the state's device (``growth.Draws`` and
 ``links.Draws`` inject others).
 
+The grid engine reads at most ``ROW_CAP`` cells of a row of three
+neighbour cubes and raises on more.  The JAX example keeps the engine's
+default of 32, which the published run outgrows: the growth of part 4
+packs the 4,096 cells of part 5 so that the fullest row holds 27 to 30
+cells on the CPU, and on the card more than 32 for one seed in 13
+(the benchmark's ``mfsa.published``).  ``ROW_CAP`` = 48 holds the run;
+it changes no force, only how many candidates a row may hold.
+
 Usage: python3 -m yalla_tpu_torch.examples.model_features_sequential_addition
            [part_steps] [--device DEVICE]
 """
@@ -25,6 +33,7 @@ from ..growth import proliferate
 from ..inits import random_sphere
 from ..links import Links, link_forces, random_cube_neighbours
 from ..polarity import bending_force_fast, polarity_precompute
+from ..utils.profiling import spanned
 from ..vtkio import Vtk_output
 from . import device_arg, steps_arg
 
@@ -42,6 +51,9 @@ MESENCHYME, EPITHELIUM = 0.0, 1.0
 SEED = 16
 # the grid random_cube_neighbours bins the protrusion proposals on
 PROTRUSION_GRID = 32
+# the grid engine's capacity of a 3-cube row, sized for the published run
+# (module docstring)
+ROW_CAP = 48
 
 Cell = make_pt("MsaCell", "w", "theta", "phi", "ctype")
 
@@ -122,10 +134,12 @@ def child_fn(X, props, direction, i):
     return parent, daughter
 
 
-def setup(device="cuda"):
-    """A random mesenchymal ball of ``n_0`` cells (grid of 50 cubes)."""
-    rng = np.random.default_rng(SEED)
-    cells = Solution(Cell, n_max, solver="grid", grid_size=50, device=device)
+def setup(device="cuda", seed=SEED):
+    """A random mesenchymal ball of ``n_0`` cells (grid of 50 cubes), its
+    positions drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    cells = Solution(Cell, n_max, solver="grid", grid_size=50,
+                     row_cap=ROW_CAP, device=device)
     cells.h_n = n_0
     random_sphere(0.55, cells, rng=rng)
     return cells
@@ -172,17 +186,17 @@ def intercalation_step(cells, protrusions, draws=None):
                     precompute=polarity_precompute)
 
 
-def start(cells, n_steps=None):
+def start(cells, n_steps=None, seed=SEED):
     """A run's state: the step index, the steps of each part less one
     (``part_steps`` by default), the last step's aux, the divisions'
-    generator and the protrusions (both seeded ``SEED``)."""
+    generator and the protrusions (both seeded ``seed``)."""
     dev = cells.device
     g = torch.Generator(device=dev)
-    g.manual_seed(SEED)
+    g.manual_seed(seed)
     return SimpleNamespace(
         t=0, n_steps=part_steps if n_steps is None else n_steps,
         aux=None, generator=g,
-        links=Links(n_max * prots_per_cell, protrusion_strength, seed=SEED,
+        links=Links(n_max * prots_per_cell, protrusion_strength, seed=seed,
                     device=dev))
 
 
@@ -230,22 +244,33 @@ def step(cells, state, draws=None):
             state.links.set_d_n(n_0 * prots_per_cell)
 
 
+def cell_types(cells):
+    """The frames' ``cell_type`` property, filled by :func:`write_frame`."""
+    return Property(cells.n_pad, "cell_type", device=cells.device)
+
+
+@spanned("output.frame")
+def write_frame(output, cells, state, cell_type):
+    """One frame's file: the positions, the protrusions (in the fifth
+    part), the polarity, the cell types (read back into ``cell_type``)
+    and the field w."""
+    output.write_positions(cells)
+    if part_of(state) == 4:
+        output.write_links(state.links)
+    output.write_polarity(cells)
+    cell_type.h_prop = cells.d_X.ctype.cpu().numpy().astype(np.int32)
+    output.write_property(cell_type)
+    output.write_field(cells, "w")
+
+
 def run(cells, n_steps=None):
     """The five parts of ``n_steps + 1`` steps each (``part_steps`` by
     default), a frame before each step."""
-    dev = cells.device
     state = start(cells, n_steps)
-    ctype_prop = Property(cells.n_pad, "cell_type", device=dev)
+    cell_type = cell_types(cells)
     with Vtk_output("model_features_sequential_addition") as output:
         for _ in range(5 * (state.n_steps + 1)):
-            output.write_positions(cells)
-            if part_of(state) == 4:
-                output.write_links(state.links)
-            output.write_polarity(cells)
-            ctype_prop.h_prop = cells.d_X.ctype.cpu().numpy().astype(
-                np.int32)
-            output.write_property(ctype_prop)
-            output.write_field(cells, "w")
+            write_frame(output, cells, state, cell_type)
             step(cells, state)
     return state
 

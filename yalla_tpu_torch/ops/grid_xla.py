@@ -31,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import span
 from .common import cube_ids, evaluate_pairs, out_of_grid_mask
 
 __all__ = ["GridTables", "build_grid", "row_ranges", "grid_pairwise",
@@ -138,26 +139,32 @@ def grid_pairwise(pw_int, pw_friction, X, old_v, n, cube_size, *,
     (default: all) against the whole population; the grid is rebuilt on
     every call, as the reference rebuilds it per pass.  Returns per-row
     ``(F, sum_f, sum_v, aux)`` with the per-row ``__err_grid_overflow``
-    in aux."""
+    in aux.  Traced, the build (the cube ids, the sort and the two
+    scatter tables) is the span ``grid.build`` and the rest (the blocks'
+    row ranges, gathers, force and sums) ``grid.pair``, once a pass
+    each."""
     n_pad = X.x.shape[0]
-    tables = build_grid(X, n, cube_size, grid_size)
-    outs = []
-    for ids in _window(n_pad, i_offset, i_size, X.x.device).split(i_block):
-        rs, re = row_ranges(tables, tables.cid[ids], grid_size)
-        jidx, valid = _candidates(tables.order, rs, re, row_cap)
-        Xi = type(X)(*(a[ids][:, None, None] for a in X))
-        Xj = type(X)(*(a[jidx] for a in X))
-        ovj = tuple(a[jidx] for a in old_v)
-        i_arr = ids[:, None, None]
-        out = evaluate_pairs(pw_int, pw_friction, Xi, Xj, ovj, i_arr, jidx,
-                             valid & (i_arr < n), sum_axes=(1, 2),
-                             cutoff=cube_size)
-        # a row with more candidates than row_cap silently drops pairs
-        out[3]["__err_grid_overflow"] = ((re - rs + 1 > row_cap)
-                                         & (ids[:, None] < n)).any(dim=1) \
-            .to(torch.float32)
-        outs.append(out)
-    return _concat(outs)
+    with span("grid.build"):
+        tables = build_grid(X, n, cube_size, grid_size)
+    with span("grid.pair"):
+        outs = []
+        for ids in _window(n_pad, i_offset, i_size,
+                           X.x.device).split(i_block):
+            rs, re = row_ranges(tables, tables.cid[ids], grid_size)
+            jidx, valid = _candidates(tables.order, rs, re, row_cap)
+            Xi = type(X)(*(a[ids][:, None, None] for a in X))
+            Xj = type(X)(*(a[jidx] for a in X))
+            ovj = tuple(a[jidx] for a in old_v)
+            i_arr = ids[:, None, None]
+            out = evaluate_pairs(pw_int, pw_friction, Xi, Xj, ovj, i_arr,
+                                 jidx, valid & (i_arr < n), sum_axes=(1, 2),
+                                 cutoff=cube_size)
+            # a row with more candidates than row_cap silently drops pairs
+            out[3]["__err_grid_overflow"] = ((re - rs + 1 > row_cap)
+                                             & (ids[:, None] < n)) \
+                .any(dim=1).to(torch.float32)
+            outs.append(out)
+        return _concat(outs)
 
 
 def _gabriel_block(pw_int, pw_friction, X, old_v, n, cube_size, tables, *,

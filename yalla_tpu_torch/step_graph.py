@@ -65,9 +65,11 @@ __all__ = ["MAX_GRAPHS", "MAX_SEGMENTS", "MAX_PASSES", "run", "segment",
 # whole steps kept: the frame's engine's, and a resized engine's after a
 # redo
 MAX_GRAPHS = 2
-# segments kept: two a step, for a relaxation's engine and force and for
-# the growth's
-MAX_SEGMENTS = 4
+# segments kept: two a step, for three kinds of step in turn (a
+# relaxation's engine and force and the growth's; the tutorial model's
+# parts, with the background's friction, with the neighbours' and with
+# the protrusions' pull), so that none is captured again at each turn
+MAX_SEGMENTS = 6
 # Gabriel lattice passes kept: a relaxation's engine's and the growth's
 MAX_PASSES = 2
 # keys called once, kept so that their second call captures
