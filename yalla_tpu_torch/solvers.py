@@ -19,7 +19,8 @@ with every cadence, thin x-cubes and mover routing
 kernel lattice engine runs as a CUDA graph (``step_graph.py``); any other
 step runs its two pair passes eagerly and the glue after each as a CUDA
 graph, where its generic force, if any, declares ``capture_key``; the
-Gabriel engine's lattice pass is a CUDA graph of its own; ``take_steps``
+Gabriel engine's lattice pass, and the lattice engine's pass between
+such glue, is a CUDA graph of its own; ``take_steps``
 at a build before every pass runs its builds eagerly and each pass with
 its glue as a CUDA graph.
 """
@@ -52,7 +53,7 @@ from .utils.profiling import span, spanned
 __all__ = ["TileEngine", "GridEngine", "GabrielEngine", "LatticeEngine",
            "GenericForce", "Solution", "SimulationError", "heun_step",
            "heun_steps", "step_graph_key", "segment_key",
-           "lattice_segment_key", "gabriel_pass_key",
+           "lattice_segment_key", "gabriel_pass_key", "lattice_pass_key",
            "friction_w_neighbour",
            "friction_on_background"]
 
@@ -278,45 +279,79 @@ class LatticeEngine:
         object.__setattr__(self, "z_block", max(zb, 1))
 
     def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size,
-                 i_offset=0, i_size=None):
+                 i_offset=0, i_size=None, graph=False):
         """One pair pass in stable-id order: a fresh binning
         (``lattice_build``, whose pour is K2), the pair pass in slot order
         (K1), every sum gathered back by ``slot_to_stable``, the overflow
         extras' sums written at their ids, and the pass's own flags
         (dropped cells lose all their pairs; out-of-grid cells are
         mis-binned, ref solvers.cuh:361-364).  The pass covers the whole
-        population: a window raises ``ValueError``, where JAX asserts."""
+        population: a window raises ``ValueError``, where JAX asserts.
+
+        With ``graph``, where :func:`lattice_pass_key` gives a key, the
+        pass is a CUDA graph's replay (:func:`.step_graph.lattice_pass`),
+        bit for bit the eager pass, whose outputs are the graph's own
+        tensors, overwritten at its next replay: ``_heun`` asks for it
+        between a step's glue segments and hands them straight to a
+        segment, which copies them in.  The span ``lattice.build`` times
+        the key and the build (on a replay, the load of the inputs),
+        ``lattice.pair`` K1's wrapper (on a replay, the replay)."""
         if not _whole(i_offset, i_size):
             raise ValueError("LatticeEngine.pairwise takes no (i_offset, "
                              "i_size) window; the z-slab path is "
                              "parallel.lattice_spmd.ShardedLatticeEngine")
         from .ops.lattice_pallas import lattice_pairwise_pallas
         extras = self.extras_cap if self.pallas else 0
-        with span("lattice.build"):
-            lay = lattice_build(X, old_v, n, cube_size, self.grid_size,
-                                self.capacity, extras, x_split=self.x_split)
-        with span("lattice.pair"):
-            outs = lattice_pairwise_pallas(
-                pw_int, pw_friction, lay, n, cube_size,
+
+        def build(Xc, ovc, nc):
+            return lattice_build(Xc, ovc, nc, cube_size, self.grid_size,
+                                 self.capacity, extras, x_split=self.x_split)
+
+        def pair(lay, nc):
+            return lattice_pairwise_pallas(
+                pw_int, pw_friction, lay, nc, cube_size,
                 grid_size=self.grid_size, capacity=self.capacity,
                 z_block=self.z_block,
                 extras_block_cap=self.extras_block_cap, x_split=self.x_split)
-        F, sum_f, sum_v, aux = (slot_to_stable(lay, t) for t in outs[:4])
-        if extras:
-            Fe, sum_fe, sum_ve, aux_e = outs[4]
 
-            def merge(a, e):
-                return _merge_extras(lay, a, e)
-            F = type(F)(*(merge(a, e) for a, e in zip(F, Fe)))
-            sum_f = merge(sum_f, sum_fe)
-            sum_v = tuple(merge(a, e) for a, e in zip(sum_v, sum_ve))
-            aux_e = dict(aux_e)
-            blk = aux_e.pop("__err_extras_block")
-            aux = {k: merge(aux[k], aux_e[k]) for k in aux}
-            aux["__err_extras_block"] = blk
-        aux["__err_lattice_dropped"] = lay.n_dropped.to(torch.float32)
-        aux["__err_out_of_grid"] = lay.n_oob.to(torch.float32)
-        return F, sum_f, sum_v, aux
+        def whole(Xc, ovc, nc):
+            lay = build(Xc, ovc, nc)
+            return _stable_sums(lay, pair(lay, nc), extras)
+
+        with span("lattice.build"):
+            key = lattice_pass_key(self, pw_int, pw_friction, X, cube_size) \
+                if graph else None
+            g = None if key is None else step_graph.lattice_pass(
+                key, whole, X, old_v, n)
+            if g is None:
+                lay = build(X, old_v, n)
+        with span("lattice.pair"):
+            if g is not None:
+                return g.replay()
+            outs = pair(lay, n)
+        return _stable_sums(lay, outs, extras)
+
+
+def _stable_sums(lay, outs, extras):
+    """A lattice pass's outputs ``(F, sum_f, sum_v, aux)`` in stable-id
+    order from K1's outputs ``outs`` on the layout ``lay``: the gathers,
+    the extras' sums merged at their ids, and the pass's flags."""
+    F, sum_f, sum_v, aux = (slot_to_stable(lay, t) for t in outs[:4])
+    if extras:
+        Fe, sum_fe, sum_ve, aux_e = outs[4]
+
+        def merge(a, e):
+            return _merge_extras(lay, a, e)
+        F = type(F)(*(merge(a, e) for a, e in zip(F, Fe)))
+        sum_f = merge(sum_f, sum_fe)
+        sum_v = tuple(merge(a, e) for a, e in zip(sum_v, sum_ve))
+        aux_e = dict(aux_e)
+        blk = aux_e.pop("__err_extras_block")
+        aux = {k: merge(aux[k], aux_e[k]) for k in aux}
+        aux["__err_extras_block"] = blk
+    aux["__err_lattice_dropped"] = lay.n_dropped.to(torch.float32)
+    aux["__err_out_of_grid"] = lay.n_oob.to(torch.float32)
+    return F, sum_f, sum_v, aux
 
 
 # --------------------------------------------------------------------------
@@ -437,6 +472,34 @@ def gabriel_pass_key(engine, pw_int, pw_friction, X, cube_size,
     parameters of the force's CUDA functor (by value, K5 reads them at
     launch), the cube size and the point type; the inputs' shapes add to
     it (``step_graph.cache_key``), their count does not."""
+    return _pass_key(engine, pw_int, pw_friction, X, cube_size, i_offset,
+                     i_size)
+
+
+def lattice_pass_key(engine, pw_int, pw_friction, X, cube_size,
+                     i_offset=0, i_size=None):
+    """The key of the lattice engine's pair pass as a CUDA graph
+    (:func:`.step_graph.lattice_pass`), or None where the pass runs
+    eagerly: for an engine that is not exactly a ``LatticeEngine``, off
+    CUDA, on a window ``(i_offset, i_size)``, where ``cube_size`` is not a
+    Python number, inside another capture, or where the key does not hash.
+    The key is what the capture bakes in: the engine (by value: its grid,
+    capacity, ``z_block``, extras caps, ``x_split`` and ``pallas``), the
+    force and the friction (by identity), the parameters of the force's
+    CUDA functor (by value, K1 reads them at launch), the cube size and
+    the point type; the inputs' shapes add to it (``step_graph.
+    cache_key``), their count does not."""
+    if type(engine) is not LatticeEngine:
+        return None
+    return _pass_key(engine, pw_int, pw_friction, X, cube_size, i_offset,
+                     i_size)
+
+
+def _pass_key(engine, pw_int, pw_friction, X, cube_size, i_offset, i_size):
+    """The key of an engine's pair pass as a CUDA graph (the Gabriel and
+    the lattice engine's), or None off CUDA, on a window, where
+    ``cube_size`` is not a Python number, inside another capture, or where
+    the key does not hash."""
     if not _whole(i_offset, i_size) or not all(a.is_cuda for a in X) \
             or not isinstance(cube_size, (int, float)) or _capturing():
         return None
@@ -492,8 +555,9 @@ def heun_step(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
     ``gen_args``.  Where :func:`step_graph_key` gives a key, the step is
     a CUDA graph's replay (:mod:`.step_graph`); else, where
     :func:`segment_key` gives one, the glue after each of its two pair
-    passes is (the passes run eagerly): the same kernels on the same
-    inputs, bit for bit the eager step."""
+    passes is (the passes run eagerly, a ``LatticeEngine``'s as graphs of
+    their own): the same kernels on the same inputs, bit for bit the
+    eager step."""
     def body(Xc, ovc, nc, segment=step_graph.eager):
         return _heun(engine, pw_int, pw_friction, fix_mode, Xc, ovc, nc, dt,
                      cube_size, fix_point, precompute, gen, gen_args,
@@ -540,11 +604,17 @@ def _heun(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
         return X0 + (dX + dX1) * (0.5 * dt), mean_v(dX, dX1), \
             fold_pair(aux, aux1)
 
+    # between glue segments a lattice engine's pass is a graph of its own,
+    # whose outputs the segment after it copies in; the whole step's
+    # graph, which runs this eagerly, holds no pass graph
+    kw = {"graph": True} if segment is not step_graph.eager \
+        and type(engine) is LatticeEngine else {}
     Xa = augment(X, n, precompute)
-    out = engine.pairwise(pw_int, pw_friction, Xa, old_v, n, cube_size)
+    out = engine.pairwise(pw_int, pw_friction, Xa, old_v, n, cube_size, **kw)
     dX, aux1, X1 = segment("first", first, (Xa, out, n, gen_args), False)
     X1a = augment(X1, n, precompute)
-    out = engine.pairwise(pw_int, pw_friction, X1a, old_v, n, cube_size)
+    out = engine.pairwise(pw_int, pw_friction, X1a, old_v, n, cube_size,
+                          **kw)
     return segment("second", second, (X, X1a, dX, aux1, out, n, gen_args),
                    True)
 

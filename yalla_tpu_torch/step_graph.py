@@ -1,5 +1,5 @@
-"""The Heun step, the glue between its pair passes, or the Gabriel
-lattice pass, as CUDA graphs.
+"""The Heun step, the glue between its pair passes, the Gabriel lattice
+pass or the lattice engine's pair pass, as CUDA graphs.
 
 On the card, a Heun step on the kernel lattice engine is about 1,300
 device operations, each issued from Python: the host's issue, not the
@@ -19,7 +19,14 @@ two eager ``lattice_build`` calls a step, each pass and its glue a
 segment (``solvers.lattice_segment_key``).  The Gabriel engine's lattice
 pass, its build and K5, is about 120 operations more, twice a step:
 :func:`gabriel_pass` captures it (``solvers.gabriel_pass_key``), the
-pass still a Python call.
+pass still a Python call.  The lattice engine's pair pass between a
+step's glue segments (its build, K1's wrapper, the gathers back to
+stable-id order and the pass's flags; ``LatticeEngine.pairwise`` with
+``graph``, which ``solvers._heun`` asks for only where the step's glue
+runs as segments) is captured the same way in a cache of its own
+(:func:`lattice_pass`, ``solvers.lattice_pass_key``): the whole step's
+graph, whose warm-up and capture call the pass eagerly, holds no pass
+graph.
 
 The first call with a key runs eagerly (the warm-up: K1's opt-in to its
 shared memory, the plans' caches, the allocator); the second captures it
@@ -30,12 +37,18 @@ the step (the frame, the growth, the writer and the callers' own
 references hold them past the next replay), the graph's own tensors
 where the next segment copies them in before any later replay (a
 Gabriel pass's are always copies: both passes of a step share one graph,
-and a caller may hold the first pass's outputs past the second).  The key
+and a caller may hold the first pass's outputs past the second).  A
+lattice pass's outputs are the graph's own, handed straight to the
+segment after it, which copies them in before the pass replays again: at
+its capture and its replays into its own buffers, at its first, eager
+call into fresh tensors (:func:`segment`), so no pass allocates a tensor
+once its graph is captured.  The key
 a graph is kept under adds the inputs' structure to the caller's: the
 containers, each tensor's shape, dtype and device, where the counts sit,
 and every other value (a float, a string) as it is.  At most
-:data:`MAX_GRAPHS` whole steps, :data:`MAX_SEGMENTS` segments and
-:data:`MAX_PASSES` Gabriel passes are kept, the least recently used
+:data:`MAX_GRAPHS` whole steps, :data:`MAX_SEGMENTS` segments,
+:data:`MAX_PASSES` Gabriel passes and :data:`MAX_LATTICE_PASSES` lattice
+passes are kept, the least recently used
 evicted first with its memory pool; a key seen once costs a dict lookup.
 The capture is thread-local (``capture_error_mode="thread_local"``): the
 asynchronous VTK writer's worker issues its own copies while a frame
@@ -44,7 +57,8 @@ runs.
 Counters (``utils.profiling``): ``integrator.graph_capture`` and
 ``integrator.graph_replay`` for whole steps, ``integrator.segment_capture``
 and ``integrator.segment_replay`` for segments, ``gabriel.graph_capture``
-and ``gabriel.graph_replay`` for Gabriel passes (a capture's own replay
+and ``gabriel.graph_replay`` for Gabriel passes, ``lattice.graph_capture``
+and ``lattice.graph_replay`` for lattice passes (a capture's own replay
 is not counted as one); the launches counted while a graph is captured
 (``kernels.lattice_pair``, ``kernels.pour``, ``kernels.gabriel_pair``)
 are counted again at every replay, so those counters count launches that
@@ -58,9 +72,10 @@ import torch
 
 from .utils.profiling import count, tally
 
-__all__ = ["MAX_GRAPHS", "MAX_SEGMENTS", "MAX_PASSES", "run", "segment",
-           "eager", "gabriel_pass", "cache_key", "keys", "segment_keys",
-           "pass_keys", "clear"]
+__all__ = ["MAX_GRAPHS", "MAX_SEGMENTS", "MAX_PASSES", "MAX_LATTICE_PASSES",
+           "run", "segment", "eager", "gabriel_pass", "lattice_pass",
+           "cache_key", "keys", "segment_keys", "pass_keys",
+           "lattice_pass_keys", "clear"]
 
 # whole steps kept: the frame's engine's, and a resized engine's after a
 # redo
@@ -72,6 +87,8 @@ MAX_GRAPHS = 2
 MAX_SEGMENTS = 6
 # Gabriel lattice passes kept: a relaxation's engine's and the growth's
 MAX_PASSES = 2
+# lattice engine passes kept, apart from the Gabriel passes
+MAX_LATTICE_PASSES = 2
 # keys called once, kept so that their second call captures
 _MAX_SEEN = 8
 # the kinds of leaf in a structure
@@ -214,6 +231,7 @@ class _Cache:
 _steps = _Cache(MAX_GRAPHS, "integrator.graph")
 _segments = _Cache(MAX_SEGMENTS, "integrator.segment")
 _passes = _Cache(MAX_PASSES, "gabriel.graph")
+_lattice_passes = _Cache(MAX_LATTICE_PASSES, "lattice.graph")
 
 
 def run(key, body, X, old_v, n):
@@ -227,8 +245,23 @@ def segment(key, body, tree, copy):
     """``body(tree)``, a stretch of a step's glue, under ``key`` (a
     tuple): eagerly at the key's first call, captured at its second,
     replayed from then on; its outputs copied with ``copy``, else the
-    graph's own, which the next replay overwrites."""
-    return _segments.run(key, body, tree, copy)
+    graph's own, which the next replay overwrites.  Run eagerly, the body
+    takes copies of the tensors a lattice pass's graph owns, as a capture
+    and a replay take them into the segment's buffers."""
+    g = _segments.prepare(key, body, tree, copy)
+    return body(_unshared(tree)) if g is None else g.replay()
+
+
+def _unshared(tree):
+    """``tree`` with each tensor that a lattice pass's graph holds as an
+    output replaced by a copy: that graph's next replay overwrites it."""
+    owned = {id(a) for g in _lattice_passes.graphs.values() for a in g.outs}
+    if not owned:
+        return tree
+    leaves = []
+    spec = _flatten(tree, leaves, {})
+    return _build(spec, [a.clone() if id(a) in owned else a
+                         for a in leaves])
 
 
 def eager(tag, body, tree, copy):
@@ -243,6 +276,15 @@ def gabriel_pass(key, body, X, old_v, n):
     outputs (copies).  None at the key's first call, where the caller
     runs the pass eagerly; captured at its second."""
     return _passes.prepare(key, lambda t: body(*t), (X, old_v, n), True)
+
+
+def lattice_pass(key, body, X, old_v, n):
+    """The graph of the lattice engine's pair pass ``body(X, old_v, n)``
+    under ``key``, as :func:`gabriel_pass` gives the Gabriel pass's: its
+    inputs loaded, its ``replay()`` the pass's outputs, the graph's own
+    (for a :func:`segment` to copy in); None at the key's first call."""
+    return _lattice_passes.prepare(key, lambda t: body(*t), (X, old_v, n),
+                                   False)
 
 
 def keys():
@@ -263,8 +305,14 @@ def pass_keys():
     return [k[:-1] for k in _passes.graphs]
 
 
+def lattice_pass_keys():
+    """The keys of the lattice passes' graphs held, least recently used
+    first."""
+    return [k[:-1] for k in _lattice_passes.graphs]
+
+
 def clear():
     """Drop every graph (and its memory pool) and every key seen."""
-    for c in (_steps, _segments, _passes):
+    for c in (_steps, _segments, _passes, _lattice_passes):
         c.graphs.clear()
         c.seen.clear()
