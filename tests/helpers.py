@@ -15,3 +15,12 @@ def center_of_mass(points):
     n = points.h_n
     return (float(np.mean(h.x[:n])), float(np.mean(h.y[:n])),
             float(np.mean(h.z[:n])))
+
+
+def self_is_total_less(spans, name, children):
+    """Whether the span ``name``'s self seconds are its wall seconds less
+    the wall seconds of ``children``: in a table where each of them opens
+    only inside ``name``, they are its only child spans."""
+    _, total, own = spans[name]
+    rest = total - sum(spans[k][1] for k in children)
+    return abs(own - rest) <= 1e-9 + 1e-9 * abs(total)

@@ -87,6 +87,16 @@ def assert_sums_match(t, j, n, what):
                                       b[:n] if b.ndim else b, err_msg=k)
 
 
+@pytest.mark.parametrize("grid_size", [1, 16, 50])
+def test_row_offsets_match_jax(grid_size):
+    """The nine rows of three neighbour cubes, made on the device, are
+    JAX's list."""
+    got = TG._row_offsets(grid_size)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(JG._row_offsets(grid_size)))
+
+
 @pytest.mark.parametrize("cube_size", [1.0, 0.7])
 def test_build_grid_tables_match_jax(cube_size):
     n, pos, _ = random_tissue(seed=3, n=900, n_pad=1024, half=5.0)

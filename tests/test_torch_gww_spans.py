@@ -1,7 +1,10 @@
-"""The growth_w_wall layers' spans (``rewiring.update``, ``links.forces``,
-``gabriel.build``, ``gabriel.pair`` and the frame writes'
-``output.submit``) on one CPU step of the example at a tiny size
-(``gww_helpers``): recorded under ``tracing()``, none off it.  Beside
+"""The growth_w_wall layers' spans (the step's ``model.step``, and in it
+``rewiring.update``, ``gabriel.build``, ``gabriel.pair``, the flags'
+``integrator.readback`` and the division count's ``growth.readback``;
+the frame writes' ``output.submit`` and ``output.readback``) on one CPU
+step of the example at a tiny size (``gww_helpers``): recorded under
+``tracing()``, none off it, the step's self time its wall less its
+layers' spans.  Beside
 them, the benchmark's readers of those spans and of the cell's device
 trace, on tables and traces made by hand, and the K5 work that
 ``perfbench/roofline_gabriel.py`` counts on a state counted by hand."""
@@ -13,13 +16,18 @@ import pytest
 import torch
 
 from gww_helpers import small_example
+from helpers import self_is_total_less
 from perfbench import harness, roofline, roofline_gabriel
 from yalla_tpu_torch.utils import profiling
 from yalla_tpu_torch.vtkio import Vtk_output
 
 REPO = Path(__file__).resolve().parent.parent
-SPANS = ("rewiring.update", "links.forces", "gabriel.build",
-         "gabriel.pair", "output.submit", "integrator.heun_step")
+SPANS = ("model.step", "rewiring.update", "gabriel.build", "gabriel.pair",
+         "output.submit", "integrator.heun_step", "integrator.readback",
+         "growth.readback", "output.readback")
+# the spans opened directly inside the step's
+STEP_CHILDREN = ("rewiring.update", "integrator.heun_step",
+                 "integrator.readback", "growth.proliferate")
 
 
 @pytest.fixture
@@ -51,10 +59,20 @@ def test_gww_step_records_its_spans(one_step):
     spans = one_step(True)
     assert set(SPANS) <= set(spans), sorted(spans)
     counts = {k: spans[k][0] for k in SPANS}
-    assert counts == {"rewiring.update": 1, "links.forces": 2,
+    # the frame's writes read back the positions and the links, not the
+    # cell types (a property with no device copy)
+    assert counts == {"model.step": 1, "rewiring.update": 1,
                       "gabriel.build": 2, "gabriel.pair": 2,
-                      "output.submit": 3, "integrator.heun_step": 1}
+                      "output.submit": 3, "integrator.heun_step": 1,
+                      "integrator.readback": 1, "growth.readback": 1,
+                      "output.readback": 2}
     assert all(spans[k][1] > 0 for k in SPANS)
+
+
+def test_gww_step_self_time_is_what_its_layers_leave(one_step):
+    spans = one_step(True)
+    assert self_is_total_less(spans, "model.step", STEP_CHILDREN)
+    assert 0 < spans["model.step"][2] < spans["model.step"][1]
 
 
 def test_gww_step_records_nothing_off_tracing(one_step):

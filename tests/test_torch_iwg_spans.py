@@ -1,10 +1,13 @@
 """The intercalation_w_gradient layers' spans on the CPU at a tiny size
 (``iwg_helpers``): a frame of the example (``write_frame``, the span
 ``output.frame`` over its five writes, each ``output.submit``, among them
-``write_field``'s) and one step (``rewiring.update``, ``links.forces``,
-the lattice engine's eager ``lattice.build`` and ``lattice.pair``),
-recorded under ``tracing()``, none off it; ``write_polarity`` under
-``output.submit`` too.  Beside them, the benchmark's readers of those
+``write_field``'s, and ``output.readback`` for the positions, the links
+and the cell types) and one step (``model.step``, and in it
+``rewiring.update``, the lattice engine's eager ``lattice.build`` and
+``lattice.pair``, ``integrator.readback`` and ``growth.readback``),
+recorded under ``tracing()``, none off it, the step's self time its wall
+less its layers' spans; ``write_polarity`` under ``output.submit`` too.
+Beside them, the benchmark's readers of those
 spans and of the two new cells' device traces, on tables and traces made
 by hand, and the K1 work that ``perfbench/roofline_iwg.py`` counts on a
 state counted by hand."""
@@ -14,15 +17,20 @@ from types import SimpleNamespace
 import pytest
 import torch
 
+from helpers import self_is_total_less
 from iwg_helpers import small_example
 from perfbench import harness, roofline, roofline_iwg
 from yalla_tpu_torch.utils import profiling
 from yalla_tpu_torch.vtkio import Vtk_output
 
 REPO = Path(__file__).resolve().parent.parent
-SPANS = {"output.frame": 1, "output.submit": 5, "rewiring.update": 1,
-         "links.forces": 2, "lattice.build": 2, "lattice.pair": 2,
-         "integrator.heun_step": 1}
+SPANS = {"output.frame": 1, "output.submit": 5, "output.readback": 3,
+         "model.step": 1, "rewiring.update": 1, "lattice.build": 2,
+         "lattice.pair": 2, "integrator.heun_step": 1,
+         "integrator.readback": 1, "growth.readback": 1}
+# the spans opened directly inside the step's
+STEP_CHILDREN = ("rewiring.update", "integrator.heun_step",
+                 "integrator.readback", "growth.proliferate")
 
 
 @pytest.fixture
@@ -56,6 +64,12 @@ def test_iwg_frame_and_step_record_their_spans(one_step):
     assert all(spans[k][1] > 0 for k in SPANS)
     # the frame's span holds its writes
     assert spans["output.frame"][1] >= spans["output.submit"][1]
+
+
+def test_iwg_step_self_time_is_what_its_layers_leave(one_step):
+    spans = one_step(True)
+    assert self_is_total_less(spans, "model.step", STEP_CHILDREN)
+    assert 0 < spans["model.step"][2] < spans["model.step"][1]
 
 
 def test_iwg_frame_and_step_record_nothing_off_tracing(one_step):

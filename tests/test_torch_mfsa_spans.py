@@ -1,9 +1,11 @@
 """The grid engine's spans and the tutorial example's frame on the CPU at a
 tiny size (``mfsa_helpers``): a frame (``write_frame``, the span
-``output.frame`` over its writes) and one step of each part, recorded
-under ``tracing()``, none off it: ``grid.build`` and ``grid.pair`` once
-a pair pass, two a step, as children of ``integrator.heun_step``, and
-not for the grid the rewiring builds (``rewiring.update``).  Beside
+``output.frame`` over its writes and their ``output.readback``) and one
+step of each part (``model.step``, its self time its wall less its
+layers' spans), recorded under ``tracing()``, none off it: ``grid.build``
+and ``grid.pair`` once a pair pass, two a step, as children of
+``integrator.heun_step``, and not for the grid the rewiring builds
+(``rewiring.update``).  Beside
 them, the cell's three readers on tables and traces made by hand, and
 the work ``perfbench/roofline_mfsa.py`` counts against a count by
 brute force."""
@@ -14,21 +16,29 @@ from types import SimpleNamespace
 import pytest
 import torch
 
+from helpers import self_is_total_less
 from mfsa_helpers import small_example
 from perfbench import harness, roofline, roofline_mfsa
 from yalla_tpu_torch.utils import profiling
 from yalla_tpu_torch.vtkio import Vtk_output
 
 REPO = Path(__file__).resolve().parent.parent
-# the spans of a frame and a step of each part, by count
-COMMON = {"output.frame": 1, "integrator.heun_step": 1, "grid.build": 2,
-          "grid.pair": 2}
-PARTS = [dict(COMMON, **{"output.submit": 4}),
-         dict(COMMON, **{"output.submit": 4}),
-         dict(COMMON, **{"output.submit": 4}),
-         dict(COMMON, **{"output.submit": 4, "growth.proliferate": 1}),
-         dict(COMMON, **{"output.submit": 5, "rewiring.update": 1,
-                         "links.forces": 2})]
+# the spans of a frame and a step of each part, by count: the frame reads
+# back the positions and the cell types (and the links in part 5), the
+# step its flags (and the division count in part 4)
+COMMON = {"output.frame": 1, "model.step": 1, "integrator.heun_step": 1,
+          "grid.build": 2, "grid.pair": 2, "integrator.readback": 1}
+PARTS = [dict(COMMON, **{"output.submit": 4, "output.readback": 2}),
+         dict(COMMON, **{"output.submit": 4, "output.readback": 2}),
+         dict(COMMON, **{"output.submit": 4, "output.readback": 2}),
+         dict(COMMON, **{"output.submit": 4, "output.readback": 2,
+                         "growth.proliferate": 1, "growth.readback": 1}),
+         dict(COMMON, **{"output.submit": 5, "output.readback": 3,
+                         "rewiring.update": 1})]
+# the spans opened directly inside the step's, each part
+STEP_CHILDREN = [("integrator.heun_step", "integrator.readback")] * 3 + [
+    ("integrator.heun_step", "integrator.readback", "growth.proliferate"),
+    ("integrator.heun_step", "integrator.readback", "rewiring.update")]
 
 
 @pytest.fixture(scope="module")
@@ -74,6 +84,13 @@ def test_mfsa_frame_and_step_record_their_spans(tables, part):
     assert spans["integrator.heun_step"][1] >= \
         spans["grid.build"][1] + spans["grid.pair"][1]
     assert spans["output.frame"][1] >= spans["output.submit"][1]
+
+
+@pytest.mark.parametrize("part", range(5))
+def test_mfsa_step_self_time_is_what_its_layers_leave(tables, part):
+    spans = tables[0][part]
+    assert self_is_total_less(spans, "model.step", STEP_CHILDREN[part])
+    assert 0 < spans["model.step"][2] < spans["model.step"][1]
 
 
 @pytest.mark.parametrize("part", range(5))

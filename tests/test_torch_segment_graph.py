@@ -391,10 +391,12 @@ def card_example(monkeypatch, seed=7):
 def run_steps(ex, cells, held, seed, monkeypatch, steps=STEPS):
     """``steps`` example steps from ``held``: the state after each, each
     Heun step's outputs with a copy made when it returned, and the calls
-    of the names the benchmark's spy watches."""
+    of the names the benchmark's spy watches and of the link and wall
+    forces (``links._wall_dX``, under ``wall_dX``)."""
     cells.d_X, cells.d_old_v, cells.d_n = held
     state = ex.start(cells, seed=seed)
-    calls = {"update": 0, "take_step": 0, "proliferate": 0, "pairwise": 0}
+    calls = {"update": 0, "take_step": 0, "proliferate": 0, "pairwise": 0,
+             "wall_dX": 0}
     heun = []
 
     def counted(name, real):
@@ -416,6 +418,8 @@ def run_steps(ex, cells, held, seed, monkeypatch, steps=STEPS):
         m.setattr(GabrielEngine, "pairwise",
                   counted("pairwise", GabrielEngine.pairwise))
         m.setattr(ex, "proliferate", counted("proliferate", ex.proliferate))
+        m.setattr(links_mod, "_wall_dX",
+                  counted("wall_dX", links_mod._wall_dX))
         m.setattr(solvers, "heun_step", spy_heun)
         for _ in range(steps):
             ex.step(cells, state)
@@ -443,13 +447,15 @@ def test_graphed_example_steps_are_the_eager_steps(cuda, deterministic,
             eager = profiling.counters()
     assert not any(k.startswith("integrator.segment") for k in eager)
 
+    forces = calls.pop("wall_dX")
     assert calls == {"update": STEPS, "take_step": STEPS,
                      "proliferate": STEPS, "pairwise": 2 * STEPS}
     assert counters["integrator.segment_capture"] == 2
     assert counters["integrator.segment_replay"] == 2 * (STEPS - 2)
     assert spans["integrator.heun_step"][0] == STEPS
-    # the link and wall forces run at the eager step and the capture
-    assert spans["links.forces"][0] == 4
+    # the link and wall forces' Python runs at the eager step and the
+    # capture, once a pass
+    assert forces == 4
     assert counters["kernels.gabriel_pair"] == 2 * STEPS
     counts = [s[2] for s in got]
     assert counts == [s[2] for s in want] and len(set(counts)) > 1, counts

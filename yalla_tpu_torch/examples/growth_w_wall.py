@@ -51,6 +51,7 @@ from ..models.growth_w_wall import (WALL, dt, mean_dist, prolif_rate,
                                     relu_force, update_protrusions_wall,
                                     wall_friction)
 from ..solvers import GabrielEngine
+from ..utils.profiling import spanned
 from ..vtkio import Vtk_output
 from . import device_arg, steps_arg
 
@@ -142,11 +143,12 @@ def draw(cells, state, generator):
             growth_draw(generator, cells.n_pad, cells.device))
 
 
+@spanned("model.step")
 def step(cells, state, draws=None):
     """One step: rewire the protrusions, one Heun step with the wall and
     link forces, then divisions.  The randoms come from ``draws`` (the
     rewiring's and the divisions') where given, else from the run's
-    generators."""
+    generators.  Traced, the call is the span ``model.step``."""
     link_draws, growth_draws = (None, None) if draws is None else draws
     links = state.links
     links.set_d_n(min(cells.get_d_n() * prots_per_cell, links.n_max))

@@ -44,7 +44,7 @@ from ..growth import proliferate
 from ..links import Links, link_forces, random_cube_neighbours
 from ..polarity import bending_force_fast, polarity_precompute
 from ..solvers import LatticeEngine
-from ..utils.profiling import spanned
+from ..utils.profiling import span, spanned
 from ..vtkio import Vtk_input, Vtk_output
 from . import device_arg, steps_arg
 
@@ -221,11 +221,13 @@ def draw(cells, state, generator):
             growth_draw(generator, cells.n_pad, cells.device))
 
 
+@spanned("model.step")
 def step(cells, state, draws=None):
     """One step: rewire the protrusions, one Heun step with their forces
     (flags checked), then divisions on the step's neighbour counts.  The
     randoms come from ``draws`` (the rewiring's and the divisions') where
-    given, else from the run's generators.  Returns the step's aux."""
+    given, else from the run's generators.  Returns the step's aux.
+    Traced, the call is the span ``model.step``."""
     link_draws, growth_draws = (None, None) if draws is None else draws
     links = state.links
     links.set_d_n(min(cells.get_d_n() * prots_per_cell, links.n_max))
@@ -248,10 +250,13 @@ def cell_types(cells):
 @spanned("output.frame")
 def write_frame(output, cells, state, cell_type):
     """One frame's file: the positions, the protrusions, the cell types
-    (read back into ``cell_type``) and the fields w and f."""
+    (read back into ``cell_type``, the span ``output.readback``) and the
+    fields w and f."""
     output.write_positions(cells)
     output.write_links(state.links)
-    cell_type.h_prop = cells.d_X.ctype.cpu().numpy().astype(np.int32)
+    with span("output.readback"):
+        ctype = cells.d_X.ctype.cpu()
+    cell_type.h_prop = ctype.numpy().astype(np.int32)
     output.write_property(cell_type)
     output.write_field(cells, "w")
     output.write_field(cells, "f")

@@ -33,7 +33,7 @@ from ..growth import proliferate
 from ..inits import random_sphere
 from ..links import Links, link_forces, random_cube_neighbours
 from ..polarity import bending_force_fast, polarity_precompute
-from ..utils.profiling import spanned
+from ..utils.profiling import span, spanned
 from ..vtkio import Vtk_output
 from . import device_arg, steps_arg
 
@@ -148,9 +148,12 @@ def setup(device="cuda", seed=SEED):
 def make_epithelium(cells, mes_nbs):
     """Part 2's transition: cells with fewer than 20 mesenchymal
     neighbours become epithelium with radial polarity (ref :204-215,
-    counter threshold halved: these count one Heun pass)."""
-    mes = mes_nbs.cpu().numpy()
-    h = cells.copy_to_host()
+    counter threshold halved: these count one Heun pass).  Its two
+    readbacks are the span ``model.readback``."""
+    with span("model.readback"):
+        mes = mes_nbs.cpu().numpy()
+    with span("model.readback"):
+        h = cells.copy_to_host()
     surf = (mes < 20) & (np.arange(cells.n_pad) < n_0)
     d = np.maximum(np.sqrt(h.x ** 2 + h.y ** 2 + h.z ** 2), 1e-6)
     h.ctype[surf] = EPITHELIUM
@@ -160,8 +163,10 @@ def make_epithelium(cells, mes_nbs):
 
 
 def add_source(cells):
-    """Part 3's morphogen source: w = 1 for x > 1."""
-    h = cells.copy_to_host()
+    """Part 3's morphogen source: w = 1 for x > 1 (its readback the span
+    ``model.readback``)."""
+    with span("model.readback"):
+        h = cells.copy_to_host()
     h.w[(h.x > 1.0) & (np.arange(cells.n_pad) < cells.h_n)] = 1.0
     cells.copy_to_device()
 
@@ -217,11 +222,13 @@ def draw(cells, state, generator):
     return None
 
 
+@spanned("model.step")
 def step(cells, state, draws=None):
     """Step ``state.t``: a step of its part, and after the last step of a
     part the change that opens the next (the epithelium, the source, the
     protrusions' count).  The randoms come from ``draws`` where given,
-    else from the run's generators."""
+    else from the run's generators.  Traced, the call is the span
+    ``model.step``."""
     pre = polarity_precompute
     part = part_of(state)
     if part == 0:
@@ -252,13 +259,15 @@ def cell_types(cells):
 @spanned("output.frame")
 def write_frame(output, cells, state, cell_type):
     """One frame's file: the positions, the protrusions (in the fifth
-    part), the polarity, the cell types (read back into ``cell_type``)
-    and the field w."""
+    part), the polarity, the cell types (read back into ``cell_type``,
+    the span ``output.readback``) and the field w."""
     output.write_positions(cells)
     if part_of(state) == 4:
         output.write_links(state.links)
     output.write_polarity(cells)
-    cell_type.h_prop = cells.d_X.ctype.cpu().numpy().astype(np.int32)
+    with span("output.readback"):
+        ctype = cells.d_X.ctype.cpu()
+    cell_type.h_prop = ctype.numpy().astype(np.int32)
     output.write_property(cell_type)
     output.write_field(cells, "w")
 

@@ -32,7 +32,7 @@ import torch
 from .dtypes import device_of, pt_zeros_like
 from .ops.grid_xla import _row_offsets, build_grid
 from .solvers import GenericForce
-from .utils.profiling import span, spanned
+from .utils.profiling import spanned
 
 __all__ = ["Links", "Draws", "cube_draws", "uniforms",
            "random_cube_neighbours", "linear_force", "link_forces",
@@ -109,8 +109,10 @@ class Links:
         self.d_n = int(self.h_n)
 
     def copy_to_host(self):
-        self.h_a = self.d_a.cpu().numpy().astype(np.int32)
-        self.h_b = self.d_b.cpu().numpy().astype(np.int32)
+        """The link table into the host mirror, in one transfer (one wait
+        for the device)."""
+        ab = torch.stack((self.d_a, self.d_b)).cpu().numpy()
+        self.h_a, self.h_b = ab.astype(np.int32)
         self.h_n = self.d_n
 
     def reset(self, check=None):
@@ -230,10 +232,9 @@ def _link_dX(force, X, args):
 
 
 def _link_force_fn(force):
-    """The generic force of the links alone, the span ``links.forces``."""
+    """The generic force of the links alone."""
     def fn(X, n, args):
-        with span("links.forces"):
-            return _link_dX(force, X, args)
+        return _link_dX(force, X, args)
     return fn
 
 
@@ -262,12 +263,10 @@ def xy_wall_relu_force(X, i, wall_idx):
     return torch.where(interacting, F, 0.0), interacting
 
 
-@spanned("links.forces")
 def _wall_dX(w_force, link_force, X, n_cells, args):
     """Wall-node forces, plus the link forces when ``link_force`` is
     given (then ``args = (link_args, wall_idx)``).  The counts (``n_cells``,
-    the links' and ``wall_idx``) are ints or 0-d int64 device tensors.
-    Traced, a call is the span ``links.forces``."""
+    the links' and ``wall_idx``) are ints or 0-d int64 device tensors."""
     if link_force is not None:
         link_args, wall_idx = args
         dX = _link_dX(link_force, X, link_args)

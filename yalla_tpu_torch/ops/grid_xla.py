@@ -52,13 +52,12 @@ class GridTables(NamedTuple):
 
 def _row_offsets(grid_size, device=None):
     """27 neighbour-cube offsets grouped as 9 rows of 3 consecutive cubes
-    (cf. the ``d_nhood`` construction, ref solvers.cuh:472-484)."""
-    offs = []
-    for dz in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            row = dz * grid_size * grid_size + dy * grid_size
-            offs.append([row - 1, row, row + 1])
-    return torch.tensor(offs, dtype=torch.int64, device=device)  # [9, 3]
+    (cf. the ``d_nhood`` construction, ref solvers.cuh:472-484), made on
+    ``device``: no copy from the host, which would wait for the device's
+    queue."""
+    d = torch.arange(-1, 2, dtype=torch.int64, device=device)
+    rows = d[:, None] * (grid_size * grid_size) + d[None, :] * grid_size
+    return rows.reshape(9, 1) + d    # [9, 3]
 
 
 def build_grid(X, n, cube_size, grid_size):

@@ -32,6 +32,7 @@ import torch
 
 from .. import step_graph
 from ..dtypes import Float3
+from ..utils.profiling import span
 from .common import (ERR_PREFIX, augment, cube_coord, cube_ids, derivative,
                      evaluate_pairs, fold_pair, fold_steps, grid_dims,
                      mean_v, momentum_fix, nonfinite, out_of_grid_mask)
@@ -708,7 +709,8 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
 
     The loop is Python over fixed shapes: no value is read back to the
     host inside it.  At a fresh binning before every pass the builds are
-    eager calls of ``lattice_build`` and the glue after each is
+    eager calls of ``lattice_build`` (each the span ``lattice.build``,
+    traced) and the glue after each is
     ``segment(tag, body, inputs, copy) -> body(inputs)`` (tags ``first``
     and ``second``; ``copy``: its outputs leave the step), which
     ``step_graph.segment`` replays as a CUDA graph
@@ -962,10 +964,12 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
     # tensor of its own, the aux from zeros): one key for each segment
     oob = torch.zeros_like(zero_i)
     for _ in range(n_steps):
-        lay = build_lay(X, old_v)
+        with span("lattice.build"):
+            lay = build_lay(X, old_v)
         counts = (lay.n_dropped, lay.n_oob)
         d1, aux1, X1 = segment("first", first, (glue_in(lay), X, n), False)
-        lay = build_lay(X1, old_v)
+        with span("lattice.build"):
+            lay = build_lay(X1, old_v)
         counts += (lay.n_dropped, lay.n_oob)
         if auxs is None:
             auxs = {k: torch.zeros_like(v) for k, v in aux1.items()}

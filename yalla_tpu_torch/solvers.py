@@ -734,8 +734,11 @@ class Solution:
         self.d_n = int(self.h_n)
 
     def copy_to_host(self):
+        """The device state into the host mirror, in one transfer (one
+        wait for the device), each field an array of its own."""
         assert self.d_X is not None
-        self.h_X = self.pt_type(*[f.cpu().numpy().copy() for f in self.d_X])
+        host = torch.stack(tuple(self.d_X)).cpu().numpy()
+        self.h_X = self.pt_type(*[f.copy() for f in host])
         self.h_n = self.d_n
         return self.h_X
 
@@ -824,6 +827,7 @@ class Solution:
             self._fix_point, precompute, gen,
             gen.args if gen is not None else None)
 
+    @spanned("integrator.take_steps")
     def take_steps(self, n_steps, dt, pw_int, *,
                    pw_friction=friction_w_neighbour, gen_forces=None,
                    precompute=None, check_errors=True):
@@ -840,7 +844,8 @@ class Solution:
         build before every pass with no generic force, the glue after
         each build (the pass, the derivative, the Heun update and the
         folds) replays as a CUDA graph (:func:`lattice_segment_key`),
-        two a step, the builds still eager calls."""
+        two a step, the builds still eager calls.  Traced, the call is
+        the span ``integrator.take_steps``."""
         self._ensure_device()
         e = self.engine
         gen = _as_generic(gen_forces)
@@ -854,10 +859,11 @@ class Solution:
                 # engine says otherwise
                 k = max(d for d in range(1, e.rebuild_every + 1)
                         if n_steps % d == 0)
+                # stacklevel 3: the caller, past the span's wrapper
                 warnings.warn(
                     f"take_steps(n_steps={n_steps}) is not a multiple of "
                     f"rebuild_every={e.rebuild_every}; rebuilding every "
-                    f"{k} steps for this call", stacklevel=2)
+                    f"{k} steps for this call", stacklevel=3)
             key = lattice_segment_key(
                 e, k, pw_int, pw_friction, self._fix_mode, self.d_X, dt,
                 self.cube_size, self._fix_point, precompute, gen)
@@ -925,12 +931,14 @@ class Solution:
     def _check_errors(self):
         """Raise ``SimulationError`` if any in-loop failure flag of the
         last call is set (ref in-kernel D_ASSERTs, solvers.cuh:82,90,
-        153-154).  One host readback per call."""
+        153-154).  One host readback per call, the span
+        ``integrator.readback``."""
         keys = [k for k in self.aux if k.startswith(ERR_PREFIX)]
         if not keys:
             return
-        vals = torch.stack([self.aux[k].float().max() for k in keys]) \
-            .cpu().tolist()
+        vals = torch.stack([self.aux[k].float().max() for k in keys])
+        with span("integrator.readback"):
+            vals = vals.cpu().tolist()
         problems = [f"{k[len(ERR_PREFIX):]} ({v:g})"
                     for k, v in zip(keys, vals) if v]
         if problems:

@@ -23,7 +23,9 @@ device before it returns (``write_frame`` stacks its channels into one
 such tensor), and the worker transfers and formats that copy.  Whatever
 the caller does to the state after the call returns, also in place, the
 file holds the values of the moment of the call.  A mask is copied the
-same way.
+same way.  Without the worker, a write that refreshes a host mirror from
+the device (positions, links, a property on the device) waits for the
+device there: traced, that refresh is the span ``output.readback``.
 """
 from __future__ import annotations
 
@@ -156,7 +158,8 @@ class Vtk_output:
     @spanned("output.submit")
     def write_positions(self, points, mask=None):
         if self._pool is None:
-            points.copy_to_host()
+            with span("output.readback"):
+                points.copy_to_host()
             n = points.h_n
             xs = [points.h_X.x, points.h_X.y, points.h_X.z]
         else:
@@ -211,7 +214,8 @@ class Vtk_output:
     @spanned("output.submit")
     def write_links(self, links):
         if self._pool is None:
-            links.copy_to_host()
+            with span("output.readback"):
+                links.copy_to_host()
             m = links.h_n
             a, b = links.h_a, links.h_b
         else:
@@ -380,8 +384,11 @@ class Vtk_output:
     # -- properties (ref vtk.cuh:189-214) -------------------------------------
     @spanned("output.submit")
     def write_property(self, prop):
-        if self._pool is None:
-            src = prop.copy_to_host()
+        if self._pool is None and prop.d_prop is None:
+            src = prop.h_prop
+        elif self._pool is None:
+            with span("output.readback"):
+                src = prop.copy_to_host()
         else:
             src = _snapshot(prop.d_prop if prop.d_prop is not None
                             else prop.h_prop, self.n_points)
