@@ -100,13 +100,14 @@ def test_mfsa_frame_and_step_record_nothing_off_tracing(tables, part):
 
 def test_grid_spans_are_the_passes_not_other_builds():
     """``gabriel_pairwise`` and ``random_cube_neighbours`` build the grid
-    too: neither records ``grid.build``; ``grid_pairwise`` records it once
-    a call."""
+    too: neither records ``grid.build``; ``GridEngine.pairwise`` records
+    it once a call."""
     from yalla_tpu_torch import Solution
     from yalla_tpu_torch.dtypes import Po_cell
     from yalla_tpu_torch.links import random_cube_neighbours
     from yalla_tpu_torch.ops.common import friction_w_neighbour
-    from yalla_tpu_torch.ops.grid_xla import gabriel_pairwise, grid_pairwise
+    from yalla_tpu_torch.ops.grid_xla import gabriel_pairwise
+    from yalla_tpu_torch.solvers import GridEngine
     cells = Solution(Po_cell, 64, device="cpu")
     cells.h_n = 64
     g = torch.Generator().manual_seed(3)
@@ -121,7 +122,7 @@ def test_grid_spans_are_the_passes_not_other_builds():
     ov = cells.d_old_v
     profiling.clear()
     with profiling.tracing():
-        grid_pairwise(force, friction_w_neighbour, X, ov, 64, 1.0)
+        GridEngine().pairwise(force, friction_w_neighbour, X, ov, 64, 1.0)
         gabriel_pairwise(force, friction_w_neighbour, X, ov, 64, 1.0)
         random_cube_neighbours(X, 64, 2.0, 32, torch.arange(64),
                                torch.zeros(64, dtype=torch.int64),

@@ -31,12 +31,11 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils.profiling import span
 from .common import cube_ids, evaluate_pairs, out_of_grid_mask
 
 __all__ = ["GridTables", "build_grid", "row_ranges", "grid_pairwise",
-           "gabriel_pairwise", "gabriel_windowed", "window_geometry",
-           "grid_overflow", "grid_out_of_bounds"]
+           "grid_pair_sums", "gabriel_pairwise", "gabriel_windowed",
+           "window_geometry", "grid_overflow", "grid_out_of_bounds"]
 
 # elements of one chunk of subgroups' [subgroups, g, 9, We] candidate
 # tensors in ``gabriel_windowed``
@@ -138,32 +137,36 @@ def grid_pairwise(pw_int, pw_friction, X, old_v, n, cube_size, *,
     (default: all) against the whole population; the grid is rebuilt on
     every call, as the reference rebuilds it per pass.  Returns per-row
     ``(F, sum_f, sum_v, aux)`` with the per-row ``__err_grid_overflow``
-    in aux.  Traced, the build (the cube ids, the sort and the two
-    scatter tables) is the span ``grid.build`` and the rest (the blocks'
-    row ranges, gathers, force and sums) ``grid.pair``, once a pass
-    each."""
+    in aux: :func:`grid_pair_sums` on :func:`build_grid`'s tables."""
+    return grid_pair_sums(pw_int, pw_friction, X, old_v, n, cube_size,
+                          build_grid(X, n, cube_size, grid_size),
+                          grid_size=grid_size, row_cap=row_cap,
+                          i_block=i_block, i_offset=i_offset, i_size=i_size)
+
+
+def grid_pair_sums(pw_int, pw_friction, X, old_v, n, cube_size, tables, *,
+                   grid_size, row_cap, i_block, i_offset=0, i_size=None):
+    """The pass of :func:`grid_pairwise` on the grid ``tables`` built
+    from ``X``: each block's row ranges, candidate gathers, force and
+    sums.  ``n`` is a Python int or a 0-d int64 device tensor."""
     n_pad = X.x.shape[0]
-    with span("grid.build"):
-        tables = build_grid(X, n, cube_size, grid_size)
-    with span("grid.pair"):
-        outs = []
-        for ids in _window(n_pad, i_offset, i_size,
-                           X.x.device).split(i_block):
-            rs, re = row_ranges(tables, tables.cid[ids], grid_size)
-            jidx, valid = _candidates(tables.order, rs, re, row_cap)
-            Xi = type(X)(*(a[ids][:, None, None] for a in X))
-            Xj = type(X)(*(a[jidx] for a in X))
-            ovj = tuple(a[jidx] for a in old_v)
-            i_arr = ids[:, None, None]
-            out = evaluate_pairs(pw_int, pw_friction, Xi, Xj, ovj, i_arr,
-                                 jidx, valid & (i_arr < n), sum_axes=(1, 2),
-                                 cutoff=cube_size)
-            # a row with more candidates than row_cap silently drops pairs
-            out[3]["__err_grid_overflow"] = ((re - rs + 1 > row_cap)
-                                             & (ids[:, None] < n)) \
-                .any(dim=1).to(torch.float32)
-            outs.append(out)
-        return _concat(outs)
+    outs = []
+    for ids in _window(n_pad, i_offset, i_size, X.x.device).split(i_block):
+        rs, re = row_ranges(tables, tables.cid[ids], grid_size)
+        jidx, valid = _candidates(tables.order, rs, re, row_cap)
+        Xi = type(X)(*(a[ids][:, None, None] for a in X))
+        Xj = type(X)(*(a[jidx] for a in X))
+        ovj = tuple(a[jidx] for a in old_v)
+        i_arr = ids[:, None, None]
+        out = evaluate_pairs(pw_int, pw_friction, Xi, Xj, ovj, i_arr, jidx,
+                             valid & (i_arr < n), sum_axes=(1, 2),
+                             cutoff=cube_size)
+        # a row with more candidates than row_cap silently drops pairs
+        out[3]["__err_grid_overflow"] = ((re - rs + 1 > row_cap)
+                                         & (ids[:, None] < n)) \
+            .any(dim=1).to(torch.float32)
+        outs.append(out)
+    return _concat(outs)
 
 
 def _gabriel_block(pw_int, pw_friction, X, old_v, n, cube_size, tables, *,

@@ -19,8 +19,8 @@ with every cadence, thin x-cubes and mover routing
 kernel lattice engine runs as a CUDA graph (``step_graph.py``); any other
 step runs its two pair passes eagerly and the glue after each as a CUDA
 graph, where its generic force, if any, declares ``capture_key``; the
-Gabriel engine's lattice pass, and the lattice engine's pass between
-such glue, is a CUDA graph of its own; ``take_steps``
+Gabriel engine's lattice pass, and the lattice or the grid engine's
+pass between such glue, is a CUDA graph of its own; ``take_steps``
 at a build before every pass runs its builds eagerly and each pass with
 its glue as a CUDA graph.
 """
@@ -43,7 +43,7 @@ from .ops.common import (ERR_PREFIX, add_rhs, augment,  # noqa: F401
                          out_of_grid_mask, truncate_aug)
 from .ops.functors import PAIR_FUNCTORS
 from .ops.grid_xla import (build_grid, gabriel_pairwise, gabriel_windowed,
-                           grid_overflow, grid_pairwise)
+                           grid_overflow, grid_pair_sums)
 from .ops.lattice_xla import (_merge_extras, lattice_build,
                               lattice_heun_steps, pick_lattice_dims,
                               slot_to_stable)
@@ -54,6 +54,7 @@ __all__ = ["TileEngine", "GridEngine", "GabrielEngine", "LatticeEngine",
            "GenericForce", "Solution", "SimulationError", "heun_step",
            "heun_steps", "step_graph_key", "segment_key",
            "lattice_segment_key", "gabriel_pass_key", "lattice_pass_key",
+           "grid_pass_key",
            "friction_w_neighbour",
            "friction_on_background"]
 
@@ -119,17 +120,58 @@ def _whole(i_offset, i_size):
 class GridEngine:
     """Spatial-hash O(N) with the ``dist < cube_size`` cutoff
     (ref Grid_computer, solvers.cuh:465-502); ``ops/grid_xla.py``, with
-    its ``(i_offset, i_size)`` window."""
+    its ``(i_offset, i_size)`` window.
+
+    On the card the whole gather pass (the build's sort and scatter
+    tables, the candidate gathers, the pair force and the sums) can be
+    a CUDA graph's replay (``graph``), the pair force captured with it:
+    a pair force reads nothing back, has no shape that depends on the
+    data, and reads what it reads besides its arguments (a module's
+    constants) as the capture found it, the contract under which the
+    JAX package traces the same force under ``jit``."""
     grid_size: int = 50
     row_cap: int = 32
     i_block: int = 4096
 
     def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size,
-                 i_offset=0, i_size=None):
-        return grid_pairwise(pw_int, pw_friction, X, old_v, n, cube_size,
-                             grid_size=self.grid_size, row_cap=self.row_cap,
-                             i_block=self.i_block, i_offset=i_offset,
-                             i_size=i_size)
+                 i_offset=0, i_size=None, graph=False):
+        """One gather pass (``ops.grid_xla.grid_pairwise``) on the rows
+        ``[i_offset, i_offset + i_size)`` (default: all).
+
+        With ``graph``, where :func:`grid_pass_key` gives a key, the pass
+        is a CUDA graph's replay (:func:`.step_graph.grid_pass`), bit for
+        bit the eager pass, whose outputs are the graph's own tensors,
+        overwritten at its next replay: ``_heun`` asks for it between a
+        step's glue segments and hands them straight to a segment, which
+        copies them in.  Traced, the span ``grid.build`` times the key and
+        the build (the cube ids, the sort and the two scatter tables; on
+        a replay, the load of the inputs), ``grid.pair`` the rest (the
+        blocks' row ranges, gathers, force and sums; on a replay, the
+        replay), once a pass each."""
+        def build(Xc, nc):
+            return build_grid(Xc, nc, cube_size, self.grid_size)
+
+        def pair(tables, Xc, ovc, nc):
+            return grid_pair_sums(pw_int, pw_friction, Xc, ovc, nc,
+                                  cube_size, tables,
+                                  grid_size=self.grid_size,
+                                  row_cap=self.row_cap, i_block=self.i_block,
+                                  i_offset=i_offset, i_size=i_size)
+
+        def whole(Xc, ovc, nc):
+            return pair(build(Xc, nc), Xc, ovc, nc)
+
+        with span("grid.build"):
+            key = grid_pass_key(self, pw_int, pw_friction, X, cube_size,
+                                i_offset, i_size) if graph else None
+            g = None if key is None else step_graph.grid_pass(
+                key, whole, X, old_v, n)
+            if g is None:
+                tables = build(X, n)
+        with span("grid.pair"):
+            if g is not None:
+                return g.replay()
+            return pair(tables, X, old_v, n)
 
 
 @dataclass(frozen=True)
@@ -495,9 +537,27 @@ def lattice_pass_key(engine, pw_int, pw_friction, X, cube_size,
                      i_size)
 
 
+def grid_pass_key(engine, pw_int, pw_friction, X, cube_size, i_offset=0,
+                  i_size=None):
+    """The key of the grid engine's gather pass as a CUDA graph
+    (:func:`.step_graph.grid_pass`), or None where the pass runs eagerly:
+    for an engine that is not exactly a ``GridEngine``, off CUDA, on a
+    window ``(i_offset, i_size)``, where ``cube_size`` is not a Python
+    number, inside another capture, or where the key does not hash.  The
+    key is what the capture bakes in: the engine (by value: its grid,
+    ``row_cap`` and ``i_block``), the force and the friction (by
+    identity), the parameters of the force's CUDA functor (by value, None
+    for a Python force), the cube size and the point type; the inputs'
+    shapes add to it (``step_graph.cache_key``), their count does not."""
+    if type(engine) is not GridEngine:
+        return None
+    return _pass_key(engine, pw_int, pw_friction, X, cube_size, i_offset,
+                     i_size)
+
+
 def _pass_key(engine, pw_int, pw_friction, X, cube_size, i_offset, i_size):
-    """The key of an engine's pair pass as a CUDA graph (the Gabriel and
-    the lattice engine's), or None off CUDA, on a window, where
+    """The key of an engine's pair pass as a CUDA graph (the Gabriel, the
+    lattice and the grid engine's), or None off CUDA, on a window, where
     ``cube_size`` is not a Python number, inside another capture, or where
     the key does not hash."""
     if not _whole(i_offset, i_size) or not all(a.is_cuda for a in X) \
@@ -555,9 +615,9 @@ def heun_step(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
     ``gen_args``.  Where :func:`step_graph_key` gives a key, the step is
     a CUDA graph's replay (:mod:`.step_graph`); else, where
     :func:`segment_key` gives one, the glue after each of its two pair
-    passes is (the passes run eagerly, a ``LatticeEngine``'s as graphs of
-    their own): the same kernels on the same inputs, bit for bit the
-    eager step."""
+    passes is (the passes run eagerly, a ``LatticeEngine``'s or a
+    ``GridEngine``'s as graphs of their own): the same kernels on the
+    same inputs, bit for bit the eager step."""
     def body(Xc, ovc, nc, segment=step_graph.eager):
         return _heun(engine, pw_int, pw_friction, fix_mode, Xc, ovc, nc, dt,
                      cube_size, fix_point, precompute, gen, gen_args,
@@ -604,11 +664,11 @@ def _heun(engine, pw_int, pw_friction, fix_mode, X, old_v, n, dt,
         return X0 + (dX + dX1) * (0.5 * dt), mean_v(dX, dX1), \
             fold_pair(aux, aux1)
 
-    # between glue segments a lattice engine's pass is a graph of its own,
-    # whose outputs the segment after it copies in; the whole step's
-    # graph, which runs this eagerly, holds no pass graph
+    # between glue segments a lattice or a grid engine's pass is a graph
+    # of its own, whose outputs the segment after it copies in; the whole
+    # step's graph, which runs this eagerly, holds no pass graph
     kw = {"graph": True} if segment is not step_graph.eager \
-        and type(engine) is LatticeEngine else {}
+        and type(engine) in (LatticeEngine, GridEngine) else {}
     Xa = augment(X, n, precompute)
     out = engine.pairwise(pw_int, pw_friction, Xa, old_v, n, cube_size, **kw)
     dX, aux1, X1 = segment("first", first, (Xa, out, n, gen_args), False)

@@ -1,5 +1,6 @@
 """The Heun step, the glue between its pair passes, the Gabriel lattice
-pass or the lattice engine's pair pass, as CUDA graphs.
+pass, the lattice engine's pair pass or the grid engine's gather pass,
+as CUDA graphs.
 
 On the card, a Heun step on the kernel lattice engine is about 1,300
 device operations, each issued from Python: the host's issue, not the
@@ -26,7 +27,16 @@ stable-id order and the pass's flags; ``LatticeEngine.pairwise`` with
 runs as segments) is captured the same way in a cache of its own
 (:func:`lattice_pass`, ``solvers.lattice_pass_key``): the whole step's
 graph, whose warm-up and capture call the pass eagerly, holds no pass
-graph.
+graph.  The grid engine's gather pass between the same segments (its
+build's sort and scatter tables, the candidate gathers, the pair force
+and the sums; ``GridEngine.pairwise`` with ``graph``) is captured in a
+third cache (:func:`grid_pass`, ``solvers.grid_pass_key``) under the
+same rules.  Its pair force, a Python function, is captured with it: a
+pair force reads nothing back, has no shape that depends on the data,
+and reads what it reads besides its arguments as the capture found it,
+the contract under which the JAX package traces the same force under
+``jit`` and under which the segments capture the force's derived-aux
+and post-pair hooks.
 
 The first call with a key runs eagerly (the warm-up: K1's opt-in to its
 shared memory, the plans' caches, the allocator); the second captures it
@@ -42,13 +52,13 @@ lattice pass's outputs are the graph's own, handed straight to the
 segment after it, which copies them in before the pass replays again: at
 its capture and its replays into its own buffers, at its first, eager
 call into fresh tensors (:func:`segment`), so no pass allocates a tensor
-once its graph is captured.  The key
-a graph is kept under adds the inputs' structure to the caller's: the
-containers, each tensor's shape, dtype and device, where the counts sit,
-and every other value (a float, a string) as it is.  At most
-:data:`MAX_GRAPHS` whole steps, :data:`MAX_SEGMENTS` segments,
-:data:`MAX_PASSES` Gabriel passes and :data:`MAX_LATTICE_PASSES` lattice
-passes are kept, the least recently used
+once its graph is captured; a grid pass's likewise.  The key a graph is
+kept under adds the inputs' structure to the caller's: the containers,
+each tensor's shape, dtype and device, where the counts sit, and every
+other value (a float, a string) as it is.  At most :data:`MAX_GRAPHS`
+whole steps, :data:`MAX_SEGMENTS` segments, :data:`MAX_PASSES` Gabriel
+passes, :data:`MAX_LATTICE_PASSES` lattice passes and
+:data:`MAX_GRID_PASSES` grid passes are kept, the least recently used
 evicted first with its memory pool; a key seen once costs a dict lookup.
 The capture is thread-local (``capture_error_mode="thread_local"``): the
 asynchronous VTK writer's worker issues its own copies while a frame
@@ -58,8 +68,9 @@ Counters (``utils.profiling``): ``integrator.graph_capture`` and
 ``integrator.graph_replay`` for whole steps, ``integrator.segment_capture``
 and ``integrator.segment_replay`` for segments, ``gabriel.graph_capture``
 and ``gabriel.graph_replay`` for Gabriel passes, ``lattice.graph_capture``
-and ``lattice.graph_replay`` for lattice passes (a capture's own replay
-is not counted as one); the launches counted while a graph is captured
+and ``lattice.graph_replay`` for lattice passes, ``grid.graph_capture``
+and ``grid.graph_replay`` for grid passes (a capture's own replay is not
+counted as one); the launches counted while a graph is captured
 (``kernels.lattice_pair``, ``kernels.pour``, ``kernels.gabriel_pair``)
 are counted again at every replay, so those counters count launches that
 ran.
@@ -73,9 +84,9 @@ import torch
 from .utils.profiling import count, tally
 
 __all__ = ["MAX_GRAPHS", "MAX_SEGMENTS", "MAX_PASSES", "MAX_LATTICE_PASSES",
-           "run", "segment", "eager", "gabriel_pass", "lattice_pass",
-           "cache_key", "keys", "segment_keys", "pass_keys",
-           "lattice_pass_keys", "clear"]
+           "MAX_GRID_PASSES", "run", "segment", "eager", "gabriel_pass",
+           "lattice_pass", "grid_pass", "cache_key", "keys", "segment_keys",
+           "pass_keys", "lattice_pass_keys", "grid_pass_keys", "clear"]
 
 # whole steps kept: the frame's engine's, and a resized engine's after a
 # redo
@@ -89,6 +100,9 @@ MAX_SEGMENTS = 6
 MAX_PASSES = 2
 # lattice engine passes kept, apart from the Gabriel passes
 MAX_LATTICE_PASSES = 2
+# grid engine passes kept: the tutorial model's, with the background's
+# friction and with the neighbours'
+MAX_GRID_PASSES = 2
 # keys called once, kept so that their second call captures
 _MAX_SEEN = 8
 # the kinds of leaf in a structure
@@ -232,6 +246,7 @@ _steps = _Cache(MAX_GRAPHS, "integrator.graph")
 _segments = _Cache(MAX_SEGMENTS, "integrator.segment")
 _passes = _Cache(MAX_PASSES, "gabriel.graph")
 _lattice_passes = _Cache(MAX_LATTICE_PASSES, "lattice.graph")
+_grid_passes = _Cache(MAX_GRID_PASSES, "grid.graph")
 
 
 def run(key, body, X, old_v, n):
@@ -246,16 +261,18 @@ def segment(key, body, tree, copy):
     tuple): eagerly at the key's first call, captured at its second,
     replayed from then on; its outputs copied with ``copy``, else the
     graph's own, which the next replay overwrites.  Run eagerly, the body
-    takes copies of the tensors a lattice pass's graph owns, as a capture
-    and a replay take them into the segment's buffers."""
+    takes copies of the tensors a lattice or a grid pass's graph owns, as
+    a capture and a replay take them into the segment's buffers."""
     g = _segments.prepare(key, body, tree, copy)
     return body(_unshared(tree)) if g is None else g.replay()
 
 
 def _unshared(tree):
-    """``tree`` with each tensor that a lattice pass's graph holds as an
-    output replaced by a copy: that graph's next replay overwrites it."""
-    owned = {id(a) for g in _lattice_passes.graphs.values() for a in g.outs}
+    """``tree`` with each tensor that a lattice or a grid pass's graph
+    holds as an output replaced by a copy: that graph's next replay
+    overwrites it."""
+    owned = {id(a) for c in (_lattice_passes, _grid_passes)
+             for g in c.graphs.values() for a in g.outs}
     if not owned:
         return tree
     leaves = []
@@ -287,6 +304,15 @@ def lattice_pass(key, body, X, old_v, n):
                                    False)
 
 
+def grid_pass(key, body, X, old_v, n):
+    """The graph of the grid engine's gather pass ``body(X, old_v, n)``
+    under ``key``, as :func:`lattice_pass` gives the lattice pass's: its
+    inputs loaded, its ``replay()`` the pass's outputs, the graph's own
+    (for a :func:`segment` to copy in); None at the key's first call."""
+    return _grid_passes.prepare(key, lambda t: body(*t), (X, old_v, n),
+                                False)
+
+
 def keys():
     """The keys of the whole steps' graphs held, least recently used
     first."""
@@ -311,8 +337,14 @@ def lattice_pass_keys():
     return [k[:-1] for k in _lattice_passes.graphs]
 
 
+def grid_pass_keys():
+    """The keys of the grid passes' graphs held, least recently used
+    first."""
+    return [k[:-1] for k in _grid_passes.graphs]
+
+
 def clear():
     """Drop every graph (and its memory pool) and every key seen."""
-    for c in (_steps, _segments, _passes, _lattice_passes):
+    for c in (_steps, _segments, _passes, _lattice_passes, _grid_passes):
         c.graphs.clear()
         c.seen.clear()
